@@ -1,0 +1,11 @@
+"""Count-PIPNet in PyTorch with hand-written Hopper kernels.
+
+The port of ``count_pipnet_tpu`` (JAX/Pallas on a TPU) to PyTorch and CUDA
+on an NVIDIA H100. This package imports ``torch`` and never ``jax``: the
+JAX package stays the reference it is tested against. File names mirror
+the JAX package's; the public interface keeps its NHWC layout
+([B, H, W, 3] images in, [B, H, W, P] maps and [B, P] counts out).
+
+This slice covers the gumbel-hard Count-PIPNet serving path
+(``models/serving.py``, ``serving/engine.py``); ROADMAP.md lists the rest.
+"""

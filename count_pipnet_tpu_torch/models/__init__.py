@@ -1,0 +1,11 @@
+"""Models of the port: ConvNeXt backbone, Count-PIPNet, the parameter
+bridge from the JAX package, and the serving forward."""
+
+from .convnext import ConvNeXtFeatures, convnext_tiny_13_features, \
+    convnext_tiny_26_features
+from .convert import backbone_from_jax_params, from_jax_params
+from .pipnet import CountPIPNet, get_count_network
+
+__all__ = ["ConvNeXtFeatures", "convnext_tiny_26_features",
+           "convnext_tiny_13_features", "CountPIPNet", "get_count_network",
+           "from_jax_params", "backbone_from_jax_params"]

@@ -1,0 +1,123 @@
+"""Count-PIPNet in PyTorch.
+
+Port of count_pipnet_tpu/models/pipnet.py (reference
+pipnet/count_pipnet.py:70-110): backbone -> add-on (gumbel / softmax) ->
+spatial SUM (counts) -> round + clamp to [0, max_count] -> intermediate ->
+non-negative classifier. Training returns raw counts, inference the clamped
+ones. Outputs are ``(proto_features [B, H, W, P], pooled [B, P], logits)``.
+
+``PIPNet`` and the ResNet backbones are ROADMAP Queue 1 work.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..ops.ste import ste_clamp, ste_round
+from .convnext import convnext_tiny_13_features, convnext_tiny_26_features
+from .heads import AddOn, NonNegLinear
+from .intermediates import make_intermediate
+
+__all__ = ["CountPIPNet", "get_count_network", "build_backbone",
+           "BACKBONE_BUILDERS"]
+
+BACKBONE_BUILDERS = {
+    "convnext_tiny_26": convnext_tiny_26_features,
+    "convnext_tiny_13": convnext_tiny_13_features,
+}
+_NOT_PORTED = ("resnet18", "resnet34", "resnet50", "resnet50_inat",
+               "resnet101", "resnet152")
+
+
+def build_backbone(net: str, use_mid_layers: bool = False,
+                   num_stages: int = 2):
+    """Backbone factory (reference pipnet/pipnet.py:44-51)."""
+    if net in _NOT_PORTED:
+        raise NotImplementedError(
+            f"backbone {net!r} is not ported to PyTorch yet (ROADMAP "
+            f"Queue 1: PIPNet and ResNets)")
+    if net not in BACKBONE_BUILDERS:
+        raise ValueError(
+            f"Network '{net}' is not supported. Supported: "
+            f"{sorted(BACKBONE_BUILDERS) + sorted(_NOT_PORTED)}")
+    return BACKBONE_BUILDERS[net](
+        num_stages=num_stages if use_mid_layers else 7)
+
+
+class CountPIPNet(nn.Module):
+    """Count-aware PIP-Net: spatial sum -> count discretization ->
+    intermediate expansion -> non-negative classifier."""
+
+    def __init__(self, num_classes: int, num_prototypes: int,
+                 backbone: nn.Module, max_count: int = 3,
+                 use_ste: bool = True, backward_clamp_identity: bool = True,
+                 activation: str = "gumbel_softmax",
+                 intermediate_type: str = "onehot",
+                 positive_grad_strategy: Optional[str] = None,
+                 num_features: int = 0, bias: bool = False):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_prototypes = num_prototypes
+        self.max_count = max_count
+        self.use_ste = use_ste
+        self.backward_clamp_identity = backward_clamp_identity
+        self.activation = activation
+        self.intermediate_type = intermediate_type
+        self.num_features = num_features
+        self.backbone = backbone
+        self.add_on = AddOn(backbone.out_channels, num_features, activation)
+        self.intermediate = make_intermediate(
+            intermediate_type, num_prototypes, max_count, use_ste=use_ste,
+            positive_grad_strategy=positive_grad_strategy)
+        self.classification = NonNegLinear(self.intermediate.output_dim,
+                                           num_classes, bias=bias)
+
+    def head(self, counts, inference: bool):
+        """counts [B, P] -> (pooled, logits)."""
+        if self.use_ste:
+            clamped = ste_clamp(ste_round(counts), 0.0,
+                                float(self.max_count),
+                                self.backward_clamp_identity)
+        else:
+            rounded = torch.round(counts) if inference else counts
+            clamped = torch.clamp(rounded, 0.0, float(self.max_count))
+        out = self.classification(self.intermediate(clamped))
+        return (clamped if inference else counts), out
+
+    def forward(self, xs, *, inference: bool = False, train: bool = False,
+                tau: float = 1.0, generator=None, noise=None):
+        """``xs`` [B, H, W, 3]. ``generator`` / ``noise``: the Gumbel draw
+        (see ops.gumbel.gumbel_softmax)."""
+        features = self.backbone(xs)
+        proto = self.add_on(features, tau=tau, train=train,
+                            generator=generator, noise=noise)
+        counts = proto.float().sum(dim=(1, 2))
+        pooled, out = self.head(counts, inference)
+        return proto, pooled, out
+
+
+def get_count_network(num_classes: int, args, max_count: int = 3,
+                      use_ste: bool = True):
+    """CountPIPNet factory (reference pipnet/count_pipnet.py:324-436);
+    ConvNeXt only, like the reference. Returns (model, num_prototypes)."""
+    if not args.net.startswith("convnext"):
+        raise ValueError(
+            f"Network '{args.net}' is not supported. Supported networks: "
+            f"{sorted(BACKBONE_BUILDERS)}")
+    backbone = build_backbone(
+        args.net, use_mid_layers=getattr(args, "use_mid_layers", False),
+        num_stages=getattr(args, "num_stages", 2))
+    num_features = getattr(args, "num_features", 0) or 0
+    num_prototypes = num_features if num_features > 0 \
+        else backbone.out_channels
+    model = CountPIPNet(
+        num_classes=num_classes, num_prototypes=num_prototypes,
+        backbone=backbone, max_count=max_count, use_ste=use_ste,
+        backward_clamp_identity=(
+            getattr(args, "backward_clamp_strategy", "Gated") == "Identity"),
+        activation=getattr(args, "activation", "gumbel_softmax"),
+        intermediate_type=getattr(args, "intermediate_layer", "onehot"),
+        positive_grad_strategy=getattr(args, "positive_grad_strategy", None),
+        num_features=num_features, bias=getattr(args, "bias", False))
+    return model, num_prototypes

@@ -1,0 +1,140 @@
+"""Build and bind the port's hand-written Hopper kernels.
+
+The ``.cu`` sources next to this file are compiled at first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into one shared
+library under ``_build/`` (named by a hash of the sources and flags, so an
+edit rebuilds), and loaded with ``ctypes``. The kernels have plain C entry
+points that take raw device pointers and the CUDA stream; they launch and
+return ``cudaGetLastError()``. :func:`check` raises on a non-zero code —
+there is no fallback to the plain PyTorch versions.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without ``nvcc``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["library", "check", "ptr", "stream_ptr", "launch_counts",
+           "reset_launch_counts", "build_info"]
+
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SRC_DIR / "_build"
+SOURCES = ("fused_block.cu", "gumbel_head.cu")
+HEADERS = ("block.cuh", "common.cuh")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
+
+# Kernel launches, by wrapper name: each wrapper adds one where it launches
+# its kernel, and nowhere else.
+launch_counts = {"fused_block": 0, "gumbel_hard_counts": 0,
+                 "fused_block_gumbel_counts": 0}
+
+# Set by the first build in this process: seconds spent, library path and
+# nvcc's resource report (registers, shared memory, spills per kernel).
+build_info = {}
+
+_lock = threading.Lock()
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U64 = ctypes.c_ulonglong
+_BLOCK_ARGS = [_I, _I, _I, _I, _I, _I,            # x_bf16 int8 B H W C
+               _P, _P, _P, _P,                    # dwk dwb lns lnb
+               _P, _P, _P, _P, _P, _P, _P, _P,    # w1 s1 b1 i1 w2 s2 b2 i2
+               _P, _F]                            # g eps
+_SIGNATURES = {
+    # x, out, x_bf16, int8, B, H, W, C, ..., stream
+    "cpt_fused_block": [_P, _P] + _BLOCK_ARGS + [_P],
+    # logits, x_bf16, noise, counts, B, HW, C, seed, stream
+    "cpt_gumbel_hard_counts": [_P, _I, _P, _P, _I, _I, _I, _U64, _P],
+    # x, x_bf16, int8, B, H, W, C, ..., noise, counts, seed, stream
+    "cpt_fused_block_gumbel_counts": [_P] + _BLOCK_ARGS + [_P, _P, _U64,
+                                                           _P],
+}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if not home:
+        from torch.utils.cpp_extension import CUDA_HOME
+        home = CUDA_HOME
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA "
+                           "kernels of count_pipnet_tpu_torch cannot build")
+    return found
+
+
+def _source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((SRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build():
+    so = BUILD_DIR / f"libcpt_kernels_{_source_hash()}.so"
+    log = so.with_suffix(".log")
+    t0 = time.perf_counter()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(SRC_DIR / s) for s in SOURCES)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.write_text(res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
+        os.replace(tmp, so)
+    build_info.update(seconds=time.perf_counter() - t0, path=str(so),
+                      log=log.read_text() if log.exists() else "")
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def library():
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _build()
+        return _lib
+
+
+def check(code: int, what: str):
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError_t {code})")
+
+
+def ptr(t):
+    """Device pointer of a tensor (None -> NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device):
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

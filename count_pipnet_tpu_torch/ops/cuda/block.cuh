@@ -1,0 +1,386 @@
+// One whole ConvNeXt block on compact NHWC planes, for serving:
+//
+//   dwconv7x7 + bias -> LayerNorm -> pw1 (C -> 4C) -> tanh-GELU
+//     -> pw2 (4C -> C) -> * layer_scale -> + residual
+//
+// Replaces the TPU kernels fused_block_apply_padded and fused_block_apply
+// (count_pipnet_tpu/ops/pallas/fused_block.py:358, :499) and, with HEAD, the
+// block part of fused_block_gumbel_counts (ops/pallas/gumbel_head.py:268).
+//
+// What bounds it on Hopper: the two pointwise GEMMs (16 * H*W * C^2 MACs per
+// image and block) are compute; the plane itself is read once and written
+// once. So, as on the TPU, the depthwise output and the 4C-wide hidden
+// activation never leave the SM:
+//
+//   1. A CTA owns TM patch rows. It computes dw7x7 for them (halo by bounds
+//      checks, f32 taps), then LayerNorm, and keeps the LN output in shared
+//      memory as the GEMM operand (bf16, or int8 with the static scale).
+//   2. It walks the hidden dimension in chunks of HC: pw1 chunk -> bias ->
+//      GELU -> cast / static-quantize -> accumulate pw2 into a [TM, C]
+//      shared accumulator (int32 in the int8 mode: the static scales are per
+//      hidden channel, so chunking is exact).
+//   3. Epilogue: dequantize, * gamma, + residual; store (A) or, with HEAD,
+//      the noisy argmax histogram of each row (C) - the plane is not stored.
+//
+// The GEMMs run on the tensor cores through mma.sync (m16n8k16 bf16,
+// m16n8k32 s8) with the weights read from L2 as [out, in] rows. wgmma, TMA
+// and a multi-stage weight pipeline are later work.
+#pragma once
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace cpt {
+
+constexpr int kTM = 32;        // patch rows per CTA
+constexpr int kHC = 128;       // hidden chunk
+constexpr int kThreads = 256;  // 8 warps
+
+struct BlockParams {
+  const void* x;  // [B*H*W, C] T
+  void* out;      // [B*H*W, C] T (kernel A)
+  int B, H, W, C;
+  const float* dwk;  // [49, C], tap (dy, dx) at row dy * 7 + dx
+  const float* dwb;  // [C]
+  const float* lns;  // [C]
+  const float* lnb;  // [C]
+  const void* w1;    // [4C, C] bf16 or int8
+  const float* s1;   // [4C] weight scale (int8)
+  const float* b1;   // [4C]
+  const float* i1;   // [C]  127 / amax of the LN output (int8)
+  const void* w2;    // [C, 4C] bf16 or int8
+  const float* s2;   // [C]
+  const float* b2;   // [C]
+  const float* i2;   // [4C] 127 / amax of the GELU output (int8)
+  const float* g;    // [C] layer scale
+  float eps;
+  float* counts;       // [B, C] f32, zeroed (HEAD)
+  const float* noise;  // [B*H*W, C] f32 or null (HEAD)
+  uint2 key;           // Philox key (HEAD, no noise)
+};
+
+__device__ __forceinline__ int8_t quant_static(float v) {
+  // round(clip(v, -127, 127)), half to even like jnp.round
+  return (int8_t)__float2int_rn(fminf(fmaxf(v, -127.0f), 127.0f));
+}
+
+// Fragment loads shared by both mma shapes: in bytes, the A registers of
+// m16n8k16 bf16 and m16n8k32 s8 sit at the same offsets (row g / g + 8,
+// byte 4 * tq / 4 * tq + 16 of the 32-byte K slice), and so do B's.
+__device__ __forceinline__ void load_frag_a(uint32_t a[4],
+                                            const unsigned char* base,
+                                            int row_bytes, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  const unsigned char* p0 = base + g * row_bytes + 4 * tq;
+  const unsigned char* p1 = p0 + 8 * row_bytes;
+  a[0] = *reinterpret_cast<const uint32_t*>(p0);
+  a[1] = *reinterpret_cast<const uint32_t*>(p1);
+  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
+  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
+}
+
+__device__ __forceinline__ void load_frag_b(uint32_t b[2],
+                                            const unsigned char* base,
+                                            int row_bytes, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  const uint32_t* p =
+      reinterpret_cast<const uint32_t*>(base + g * row_bytes + 4 * tq);
+  b[0] = __ldg(p);
+  b[1] = __ldg(p + 4);
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    const uint32_t b[2], __nv_bfloat16) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma(int c[4], const uint32_t a[4],
+                                    const uint32_t b[2], int8_t) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <bool INT8>
+struct Mode {
+  using E = std::conditional_t<INT8, int8_t, __nv_bfloat16>;  // operand
+  using Acc = std::conditional_t<INT8, int, float>;
+  static constexpr int kK = 32 / (int)sizeof(E);  // mma depth
+  static constexpr int kPad = 16 / (int)sizeof(E);  // 16-byte row pad
+};
+
+template <bool INT8>
+__host__ __device__ inline size_t block_smem_bytes(int C) {
+  using M = Mode<INT8>;
+  return (size_t)kTM * (C + 8) * 4                       // accumulator
+         + (size_t)kTM * (C + M::kPad) * sizeof(typename M::E)    // LN out
+         + (size_t)kTM * (kHC + M::kPad) * sizeof(typename M::E);  // hidden
+}
+
+template <typename T, bool INT8, bool HEAD>
+__global__ void __launch_bounds__(kThreads)
+    fused_block_kernel(const BlockParams p) {
+  using M = Mode<INT8>;
+  using E = typename M::E;
+  using Acc = typename M::Acc;
+  const int C = p.C, HD = 4 * C, HW = p.H * p.W, total = p.B * HW;
+  const int row0 = blockIdx.x * kTM;
+  const int as = C + 8;          // accumulator row stride (4-byte words)
+  const int xs = C + M::kPad;    // LN-output row stride (elements)
+  const int hs = kHC + M::kPad;  // hidden row stride (elements)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, tq = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* accf = reinterpret_cast<float*>(smem);
+  Acc* acc = reinterpret_cast<Acc*>(smem);
+  E* xn = reinterpret_cast<E*>(smem + (size_t)kTM * as * 4);
+  E* hb = xn + kTM * xs;
+  const T* x = static_cast<const T*>(p.x);
+  const unsigned char* w1 = static_cast<const unsigned char*>(p.w1);
+  const unsigned char* w2 = static_cast<const unsigned char*>(p.w2);
+
+  // 1a. depthwise 7x7 + bias into the (f32) accumulator buffer. A thread
+  // owns one channel and a run of the CTA's rows, walked in order with the
+  // 7x7 input window and the 49 taps in registers: along an image row the
+  // window slides one column, so a pixel costs 7 loads, not 49.
+  // Neighbouring threads read neighbouring channels (coalesced). Below 256
+  // channels the rows are split into segs runs so more threads work.
+  {
+    const int segs = C >= kThreads ? 1 : kThreads / C;  // 1, 2, 4 or 8
+    const int seg_rows = kTM / segs;
+    for (int t = tid; t < C * segs; t += kThreads) {
+      const int c = t % C, r0 = (t / C) * seg_rows;
+      const int start = row0 + r0;
+      int b = start / HW, y = (start - b * HW) / p.W;
+      int xq = start - b * HW - y * p.W;
+      float wk[49];
+#pragma unroll
+      for (int i = 0; i < 49; ++i) wk[i] = p.dwk[i * C + c];
+      const float bias = p.dwb[c];
+      float win[7][7];
+      bool slide = false;  // window holds the previous pixel of this row
+      for (int r = r0; r < r0 + seg_rows; ++r) {
+        float d = 0.0f;
+        if (row0 + r < total) {
+          const T* xb = x + (size_t)b * HW * C + c;
+          auto ld = [&](int yy, int xx) -> float {
+            return (yy < 0 || yy >= p.H || xx < 0 || xx >= p.W)
+                       ? 0.0f
+                       : to_f32(xb[(size_t)(yy * p.W + xx) * C]);
+          };
+          if (slide) {
+#pragma unroll
+            for (int dy = 0; dy < 7; ++dy) {
+#pragma unroll
+              for (int dx = 0; dx < 6; ++dx) win[dy][dx] = win[dy][dx + 1];
+              win[dy][6] = ld(y + dy - 3, xq + 3);
+            }
+          } else {
+#pragma unroll
+            for (int dy = 0; dy < 7; ++dy)
+#pragma unroll
+              for (int dx = 0; dx < 7; ++dx)
+                win[dy][dx] = ld(y + dy - 3, xq + dx - 3);
+          }
+          d = bias;
+#pragma unroll
+          for (int dx = 0; dx < 7; ++dx) {
+            float vs = 0.0f;
+#pragma unroll
+            for (int dy = 0; dy < 7; ++dy) vs += win[dy][dx] * wk[dy * 7 + dx];
+            d += vs;
+          }
+        }
+        accf[r * as + c] = d;
+        // next pixel
+        slide = xq + 1 < p.W;
+        if (++xq == p.W) {
+          xq = 0;
+          if (++y == p.H) {
+            y = 0;
+            ++b;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 1b. LayerNorm per row (one warp a row), cast / quantize into xn
+  for (int r = warp; r < kTM; r += kThreads / 32) {
+    const float* d = accf + r * as;
+    float s = 0.0f;
+    for (int c = lane; c < C; c += 32) s += d[c];
+    const float mu = warp_sum(s) / C;
+    float v = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float t = d[c] - mu;
+      v += t * t;
+    }
+    const float rs = rsqrtf(warp_sum(v) / C + p.eps);
+    for (int c = lane; c < C; c += 32) {
+      const float n = (d[c] - mu) * rs * p.lns[c] + p.lnb[c];
+      if constexpr (INT8) {
+        xn[r * xs + c] = quant_static(n * p.i1[c]);
+      } else {
+        xn[r * xs + c] = __float2bfloat16_rn(n);
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kTM * as; idx += kThreads) acc[idx] = Acc(0);
+  __syncthreads();
+
+  // 2. hidden chunks: pw1 -> GELU -> pw2 accumulate
+  for (int j0 = 0; j0 < HD; j0 += kHC) {
+    {  // pw1 chunk [kTM, kHC]: warp -> m-tile (warp & 1), 4 n-tiles
+      const int mt = warp & 1, nb = (warp >> 1) * 4;
+      Acc c4[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c4[t][e] = Acc(0);
+#pragma unroll 4
+      for (int k0 = 0; k0 < C; k0 += M::kK) {
+        uint32_t a[4];
+        load_frag_a(a,
+                    reinterpret_cast<const unsigned char*>(
+                        xn + (mt * 16) * xs + k0),
+                    xs * (int)sizeof(E), lane);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          uint32_t bf[2];
+          const int n0 = j0 + (nb + t) * 8;
+          load_frag_b(bf, w1 + ((size_t)n0 * C + k0) * sizeof(E),
+                      C * (int)sizeof(E), lane);
+          mma(c4[t], a, bf, E());
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = mt * 16 + g8 + (e >> 1) * 8;
+          const int jl = (nb + t) * 8 + tq * 2 + (e & 1);
+          const int j = j0 + jl;
+          float h;
+          if constexpr (INT8) {
+            h = (float)c4[t][e] * p.s1[j] + p.b1[j];
+          } else {
+            h = c4[t][e] + p.b1[j];
+          }
+          h = gelu_tanh(h);
+          if constexpr (INT8) {
+            hb[r * hs + jl] = quant_static(h * p.i2[j]);
+          } else {
+            hb[r * hs + jl] = __float2bfloat16_rn(h);
+          }
+        }
+    }
+    __syncthreads();
+    // pw2 partial [kTM, C] += hidden chunk @ w2[:, j0:j0+kHC]
+    const int ntn = C / 8;
+#pragma unroll 2
+    for (int t = warp; t < 2 * ntn; t += kThreads / 32) {
+      const int mt = t & 1, n0 = (t >> 1) * 8;
+      Acc c4[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+#pragma unroll
+      for (int k0 = 0; k0 < kHC; k0 += M::kK) {
+        uint32_t a[4], bf[2];
+        load_frag_a(a,
+                    reinterpret_cast<const unsigned char*>(
+                        hb + (mt * 16) * hs + k0),
+                    hs * (int)sizeof(E), lane);
+        load_frag_b(bf, w2 + ((size_t)n0 * HD + j0 + k0) * sizeof(E),
+                    HD * (int)sizeof(E), lane);
+        mma(c4, a, bf, E());
+      }
+      Acc* dst = acc + (mt * 16 + g8) * as + n0 + tq * 2;
+      dst[0] += c4[0];
+      dst[1] += c4[1];
+      dst[8 * as] += c4[2];
+      dst[8 * as + 1] += c4[3];
+    }
+    __syncthreads();
+  }
+
+  // 3. epilogue
+  auto branch = [&](int r, int c) -> float {
+    if constexpr (INT8) {
+      return (float)acc[r * as + c] * p.s2[c] + p.b2[c];
+    } else {
+      return acc[r * as + c] + p.b2[c];
+    }
+  };
+  if constexpr (!HEAD) {
+    T* out = static_cast<T*>(p.out);
+    for (int idx = tid; idx < kTM * C; idx += kThreads) {
+      const int r = idx / C, c = idx - r * C, row = row0 + r;
+      if (row >= total) continue;
+      const size_t o = (size_t)row * C + c;
+      store_as(out + o, to_f32(x[o]) + branch(r, c) * p.g[c]);
+    }
+  } else {
+    for (int r = warp; r < kTM; r += kThreads / 32) {
+      const int row = row0 + r;
+      if (row >= total) break;
+      const int b = row / HW, patch = row - b * HW;
+      const T* xr = x + (size_t)row * C;
+      const int win = noisy_argmax_row(
+          [&](int c) { return to_f32(xr[c]) + branch(r, c) * p.g[c]; }, C,
+          p.noise ? p.noise + (size_t)row * C : nullptr, p.key,
+          (uint32_t)patch, (uint32_t)b, lane);
+      if (lane == 0) atomicAdd(p.counts + (size_t)b * C + win, 1.0f);
+    }
+  }
+}
+
+// Host side: pick the instantiation and launch on ``stream``.
+template <bool HEAD>
+inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
+                                      int int8, cudaStream_t stream) {
+  if (p.C % 32 != 0) return cudaErrorInvalidValue;
+  const int total = p.B * p.H * p.W;
+  const dim3 grid((total + kTM - 1) / kTM);
+  const size_t smem = int8 ? block_smem_bytes<true>(p.C)
+                           : block_smem_bytes<false>(p.C);
+  auto go = [&](auto kernel) -> cudaError_t {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+  };
+  if (x_bf16) {
+    return int8 ? go(fused_block_kernel<__nv_bfloat16, true, HEAD>)
+                : go(fused_block_kernel<__nv_bfloat16, false, HEAD>);
+  }
+  return int8 ? go(fused_block_kernel<float, true, HEAD>)
+              : go(fused_block_kernel<float, false, HEAD>);
+}
+
+inline BlockParams make_block_params(
+    const void* x, void* out, int B, int H, int W, int C, const float* dwk,
+    const float* dwb, const float* lns, const float* lnb, const void* w1,
+    const float* s1, const float* b1, const float* i1, const void* w2,
+    const float* s2, const float* b2, const float* i2, const float* g,
+    float eps) {
+  BlockParams p;
+  p.x = x; p.out = out; p.B = B; p.H = H; p.W = W; p.C = C;
+  p.dwk = dwk; p.dwb = dwb; p.lns = lns; p.lnb = lnb;
+  p.w1 = w1; p.s1 = s1; p.b1 = b1; p.i1 = i1;
+  p.w2 = w2; p.s2 = s2; p.b2 = b2; p.i2 = i2;
+  p.g = g; p.eps = eps;
+  p.counts = nullptr; p.noise = nullptr; p.key = make_uint2(0u, 0u);
+  return p;
+}
+
+}  // namespace cpt

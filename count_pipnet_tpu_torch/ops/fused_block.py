@@ -1,0 +1,183 @@
+"""A whole ConvNeXt block for serving: kernel A and its plain version.
+
+    dwconv7x7 -> LayerNorm -> Dense(C->4C) -> GELU(tanh) -> Dense(4C->C)
+        -> * layer_scale -> + residual
+
+Port of count_pipnet_tpu/ops/pallas/fused_block.py (``fused_block_apply``
+and ``fused_block_apply_padded``; the TPU's padded-plane layout is not
+carried: the CUDA kernel reads compact NHWC planes and handles the 3-pixel
+halo with bounds checks). Two GEMM modes, as on the TPU:
+
+* bf16: the LN and GELU outputs are cast to bf16, products accumulate in f32;
+* int8-static: calibrated per-channel activation maxima are folded into
+  the int8 weights (:func:`quantize_block_weights_folded`) and the kernel
+  quantizes with one multiply, ``round(clip(x * 127/amax, +-127))``.
+
+The TPU's dynamic per-row int8 mode is not ported (ROADMAP Queue 1):
+:func:`prepare_block` raises for ``int8=True`` without scales.
+
+Weights are prepared once (:func:`prepare_block`), in the layout the kernel
+reads: ``[out, in]`` GEMM operands. :func:`fused_block` launches the CUDA
+kernel (ops/cuda/fused_block.cu) for a CUDA tensor and runs
+:func:`fused_block_plain` for a CPU tensor.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda as _cuda
+
+__all__ = ["quantize_block_weights", "quantize_block_weights_folded",
+           "prepare_block", "fused_block", "fused_block_plain",
+           "block_residual_plain"]
+
+K = 7
+PAD = 3
+
+
+def quantize_block_weights(kernel):
+    """[C, H] float -> (int8 [C, H], f32 scale [1, H]) symmetric
+    per-output-channel."""
+    k = torch.as_tensor(kernel, dtype=torch.float32)
+    amax = k.abs().amax(dim=0, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(k / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_block_weights_folded(kernel, act_amax):
+    """Weight quantization for the static activation-scale mode: the
+    per-input-channel activation scale ``amax_k / 127`` is folded into the
+    ``[in, out]`` weight before per-output-channel quantization, so
+    ``acc * wscale`` alone dequantizes the int8 GEMM.
+
+    Returns (int8 [C, H], f32 wscale [1, H], f32 inv [1, C] = 127/amax).
+    """
+    amax = torch.clamp_min(
+        torch.as_tensor(act_amax, dtype=torch.float32).reshape(-1), 1e-9)
+    k = torch.as_tensor(kernel, dtype=torch.float32) \
+        * (amax / 127.0)[:, None]
+    q, scale = quantize_block_weights(k)
+    # tensor / tensor: ``127.0 / amax`` would run as 127 * reciprocal(amax)
+    # in PyTorch, one ulp off the IEEE quotient the JAX package computes
+    inv = torch.full_like(amax, 127.0) / amax
+    return q, scale, inv.reshape(1, -1)
+
+
+def prepare_block(dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,
+                  pw1_bias, pw2_weight, pw2_bias, layer_scale, *,
+                  int8: bool = False, act_scales=None):
+    """Kernel-ready weights of one block, from torch-layout parameters
+    (``dw_weight`` [C, 1, 7, 7], ``pw1_weight`` [4C, C], ``pw2_weight``
+    [C, 4C], ``layer_scale`` [C, 1, 1] or [C]).
+
+    ``int8=True`` needs ``act_scales = (amax_ln [C], amax_gelu [4C])``.
+    Returns a dict of contiguous tensors on the parameters' device.
+    """
+    f32 = lambda t: t.detach().to(torch.float32).reshape(-1).contiguous()
+    c = dw_weight.shape[0]
+    pb = {
+        "int8": bool(int8),
+        "dwk": dw_weight.detach().to(torch.float32).reshape(c, K * K)
+        .t().contiguous(),                       # [49, C], tap dy * 7 + dx
+        "dwb": f32(dw_bias), "lns": f32(ln_weight), "lnb": f32(ln_bias),
+        "b1": f32(pw1_bias), "b2": f32(pw2_bias), "g": f32(layer_scale),
+        "s1": None, "i1": None, "s2": None, "i2": None,
+    }
+    if int8:
+        if act_scales is None:
+            raise ValueError(
+                "int8 without calibrated act_scales is the dynamic per-row "
+                "mode, which the port does not carry (ROADMAP Queue 1)")
+        w1q, s1, i1 = quantize_block_weights_folded(
+            pw1_weight.detach().t(), act_scales[0])
+        w2q, s2, i2 = quantize_block_weights_folded(
+            pw2_weight.detach().t(), act_scales[1])
+        pb.update(w1=w1q.t().contiguous(), s1=f32(s1), i1=f32(i1),
+                  w2=w2q.t().contiguous(), s2=f32(s2), i2=f32(i2))
+    else:
+        pb.update(w1=pw1_weight.detach().to(torch.bfloat16).contiguous(),
+                  w2=pw2_weight.detach().to(torch.bfloat16).contiguous())
+    return pb
+
+
+def block_residual_plain(x, pb, eps: float = 1e-6):
+    """Plain PyTorch block on NHWC ``x``; returns the f32 block output
+    (before the cast to ``x.dtype``). The int8 GEMMs run in float64, which
+    holds their integer sums exactly. On a GPU, set
+    ``torch.backends.cudnn.allow_tf32 = False`` first: the depthwise conv
+    would otherwise run in TF32."""
+    x32 = x.to(torch.float32)
+    c = x.shape[-1]
+    wk = pb["dwk"].t().reshape(c, 1, K, K)
+    d = F.conv2d(x32.permute(0, 3, 1, 2), wk, pb["dwb"], padding=PAD,
+                 groups=c).permute(0, 2, 3, 1)
+    mu = d.mean(dim=-1, keepdim=True)
+    var = (d - mu).square().mean(dim=-1, keepdim=True)
+    n = (d - mu) * torch.rsqrt(var + eps) * pb["lns"] + pb["lnb"]
+    if pb["int8"]:
+        nq = torch.round(torch.clamp(n * pb["i1"], -127.0, 127.0))
+        hid = (nq.double() @ pb["w1"].double().t()).float()
+        hid = hid * pb["s1"] + pb["b1"]
+        a = F.gelu(hid, approximate="tanh")
+        aq = torch.round(torch.clamp(a * pb["i2"], -127.0, 127.0))
+        y = (aq.double() @ pb["w2"].double().t()).float()
+        y = y * pb["s2"] + pb["b2"]
+    else:
+        hid = n.to(torch.bfloat16).float() @ pb["w1"].float().t() + pb["b1"]
+        a = F.gelu(hid, approximate="tanh")
+        y = a.to(torch.bfloat16).float() @ pb["w2"].float().t() + pb["b2"]
+    return x32 + y * pb["g"]
+
+
+def fused_block_plain(x, pb, eps: float = 1e-6):
+    """Plain version of kernel A: [B, H, W, C] -> same shape and dtype."""
+    return block_residual_plain(x, pb, eps).to(x.dtype)
+
+
+def check_block_inputs(x, pb):
+    """Raise on what the CUDA block kernels do not take."""
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"expected a contiguous [B, H, W, C] plane, got "
+                         f"{tuple(x.shape)} with strides {x.stride()}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"block kernel takes f32 or bf16 planes, not "
+                        f"{x.dtype}")
+    if x.shape[-1] % 32:
+        raise ValueError(f"block kernel needs C % 32 == 0, got "
+                         f"C={x.shape[-1]}")
+    for k, v in pb.items():
+        if torch.is_tensor(v) and v.device != x.device:
+            raise ValueError(f"weight {k} is on {v.device}, plane on "
+                             f"{x.device}")
+
+
+def block_args(x, pb):
+    """The kernel-A argument list shared with kernel C (ops/gumbel_head)."""
+    p = _cuda.ptr
+    b, h, w, c = x.shape
+    return [int(x.dtype == torch.bfloat16), int(pb["int8"]), b, h, w, c,
+            p(pb["dwk"]), p(pb["dwb"]), p(pb["lns"]), p(pb["lnb"]),
+            p(pb["w1"]), p(pb["s1"]), p(pb["b1"]), p(pb["i1"]),
+            p(pb["w2"]), p(pb["s2"]), p(pb["b2"]), p(pb["i2"]),
+            p(pb["g"])]
+
+
+def fused_block(x, pb, eps: float = 1e-6):
+    """Whole ConvNeXt block on a compact NHWC plane ``x`` [B, H, W, C]
+    (f32 or bf16), weights from :func:`prepare_block`. Returns the block
+    output in ``x.dtype``. CUDA tensor: kernel A; CPU tensor: the plain
+    version."""
+    if x.device.type == "cpu":
+        return fused_block_plain(x, pb, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_block: unsupported device {x.device}")
+    check_block_inputs(x, pb)
+    out = torch.empty_like(x)
+    lib = _cuda.library()
+    code = lib.cpt_fused_block(
+        x.data_ptr(), out.data_ptr(), *block_args(x, pb), float(eps),
+        _cuda.stream_ptr(x.device))
+    _cuda.check(code, "fused_block")
+    _cuda.launch_counts["fused_block"] += 1
+    return out

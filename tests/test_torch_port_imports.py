@@ -1,0 +1,53 @@
+"""Import and packaging guard of the PyTorch port: every module of
+count_pipnet_tpu_torch imports with JAX made unimportable, loads neither
+flax nor the JAX package, and the CUDA sources ship with the package."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "count_pipnet_tpu_torch"
+
+_PROBE = """
+import pkgutil, sys
+sys.modules["jax"] = None
+import count_pipnet_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    __import__(name)
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "flax", "count_pipnet_tpu")
+       and sys.modules[m] is not None]
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_without_jax():
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    n_modules = int(res.stdout.split()[0])
+    assert n_modules >= 15, res.stdout
+
+
+def test_cuda_sources_tracked_and_packaged():
+    sources = sorted(p.relative_to(ROOT).as_posix()
+                     for p in (PKG / "ops" / "cuda").glob("*.cu*"))
+    assert len(sources) == 4, sources
+    if not (ROOT / ".git").exists():
+        pytest.skip("not a git checkout")
+    tracked = subprocess.run(
+        ["git", "ls-files", "--error-unmatch", *sources], cwd=ROOT,
+        capture_output=True, text=True)
+    assert tracked.returncode == 0, tracked.stderr
+    ignored = subprocess.run(
+        ["git", "check-ignore", "-q",
+         "count_pipnet_tpu_torch/ops/cuda/_build/x.so"], cwd=ROOT)
+    assert ignored.returncode == 0, "the kernel build dir must be ignored"
+    pyproject = (ROOT / "pyproject.toml").read_text()
+    assert '"count_pipnet_tpu_torch.ops.cuda" = ["*.cu", "*.cuh"]' \
+        in pyproject
