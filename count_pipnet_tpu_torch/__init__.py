@@ -6,6 +6,9 @@ JAX package stays the reference it is tested against. File names mirror
 the JAX package's; the public interface keeps its NHWC layout
 ([B, H, W, 3] images in, [B, H, W, P] maps and [B, P] counts out).
 
-This slice covers the gumbel-hard Count-PIPNet serving path
-(``models/serving.py``, ``serving/engine.py``); ROADMAP.md lists the rest.
+It covers the gumbel-hard Count-PIPNet serving path
+(``models/serving.py``, ``serving/engine.py``) and training
+(``python -m count_pipnet_tpu_torch.main``, ``train/``), with
+``--fused_blocks`` on the hand-written block-MLP kernels; ROADMAP.md lists
+the rest.
 """

@@ -1,5 +1,5 @@
-"""Parameter bridge: the JAX package's flax parameter tree -> a PyTorch
-state dict.
+"""Parameter bridge between the JAX package's flax parameter tree and a
+PyTorch state dict, both ways.
 
 The inverse of count_pipnet_tpu/models/convnext.py:convert_torchvision_
 convnext (:349), extended to the whole Count-PIPNet. Layouts:
@@ -10,8 +10,10 @@ convnext (:349), extended to the whole Count-PIPNet. Layouts:
     layer_scale   [C]                    -> [C, 1, 1]
 
 Leaves may be numpy arrays, jax arrays or anything ``np.asarray`` takes;
-the result holds float32 CPU tensors. Loading the flax msgpack checkpoint
-files themselves is ROADMAP Queue 1 work.
+the result holds float32 CPU tensors. :func:`to_jax_params` is the inverse
+(state dict -> nested dict of float32 numpy arrays), and :func:`jax_path`
+names the flax leaf of one state-dict key. Loading the flax msgpack
+checkpoint files themselves is ROADMAP Queue 1 work.
 """
 
 import re
@@ -19,7 +21,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["backbone_from_jax_params", "from_jax_params"]
+__all__ = ["backbone_from_jax_params", "from_jax_params", "to_jax_params",
+           "jax_path"]
 
 _BLOCK = re.compile(r"features_(\d+)_block_(\d+)$")
 _STAGE = re.compile(r"features_(\d+)$")
@@ -83,3 +86,55 @@ def from_jax_params(params) -> dict:
     if "bias" in clf:
         sd["classification.bias"] = _t(clf["bias"])
     return sd
+
+
+# torchvision block child -> flax scope inside a block
+_BLOCK_CHILD = {"0": "dwconv", "2": "norm", "3": "pw1", "5": "pw2"}
+_LEAF = {"weight": "kernel", "bias": "bias"}
+
+
+def jax_path(key: str):
+    """The flax parameter path (tuple of names) of a CountPIPNet state-dict
+    key, e.g. ``backbone.features.1.0.block.3.weight`` ->
+    ``("backbone", "features_1_block_0", "pw1", "kernel")``."""
+    parts = key.split(".")
+    if parts[0] == "backbone":
+        i = int(parts[2])
+        if len(parts) == 5 and parts[4] == "layer_scale":
+            return ("backbone", f"features_{i}_block_{parts[3]}",
+                    "layer_scale")
+        if parts[4:5] == ["block"]:
+            scope = _BLOCK_CHILD[parts[5]]
+            leaf = ("scale" if scope == "norm" and parts[6] == "weight"
+                    else _LEAF[parts[6]])
+            return ("backbone", f"features_{i}_block_{parts[3]}", scope, leaf)
+        conv_child = "0" if i == 0 else "1"  # stem: conv then norm
+        if parts[3] == conv_child:
+            return ("backbone", f"features_{i}", "conv", _LEAF[parts[4]])
+        return ("backbone", f"features_{i}", "norm",
+                "scale" if parts[4] == "weight" else "bias")
+    if parts[0] == "add_on":
+        return ("add_on", "conv1x1", _LEAF[parts[2]])
+    if parts[0] == "classification":
+        return ("classification", {"normalization_multiplier": "multiplier"}
+                .get(parts[1], parts[1]))
+    raise KeyError(f"no flax counterpart for {key!r}")
+
+
+def to_jax_params(state_dict) -> dict:
+    """CountPIPNet state dict -> the JAX package's nested parameter tree
+    (float32 numpy), the inverse of :func:`from_jax_params`."""
+    tree = {}
+    for key, v in state_dict.items():
+        a = v.detach().cpu().float().numpy()
+        path = jax_path(key)
+        if path[-1] == "kernel":
+            a = (np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4
+                 else np.transpose(a, (1, 0)))
+        elif path[-1] == "layer_scale":
+            a = a.reshape(-1)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree

@@ -12,9 +12,19 @@ loads without torchvision. Images come in as [B, H, W, 3] and features go
 out as [B, H, W, C]; inside, the convs run on ``channels_last`` tensors
 (an NHWC tensor viewed as NCHW is exactly that layout).
 
-Eval forward only: no stochastic depth (training is a later slice). The
-block uses erf-GELU like torchvision and the flax module; the serving
-kernels use tanh-GELU, as the TPU kernels do.
+Initialisation is the JAX package's: every conv and dense kernel from a
+normal of std 0.02 truncated at two standard deviations, zero biases,
+LayerNorms at one and zero, layer scales at 1e-6.
+
+Training mode (``train=True``) applies stochastic depth with the JAX rule
+``prob = 0.1 * block_id / (total_blocks - 1)``, where ``total_blocks``
+counts all 18 blocks even when ``num_stages`` truncates the net: a
+per-sample mask [B, 1, 1, 1] drawn from a ``torch.Generator`` (or given as
+``drop_masks``), divided by the keep probability. The eager block uses
+erf-GELU like torchvision and the flax module. With ``fused_mlp``
+(``--fused_blocks``) the block body after the depthwise conv runs through
+K5 forward and K6 backward (ops/fused_mlp.py), with tanh-GELU as in JAX,
+and stochastic depth scales the branch: ``z = x + (z - x) * mask / keep``.
 """
 
 from typing import Sequence
@@ -23,10 +33,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.fused_mlp import fused_ln_mlp_residual_ad
+
 __all__ = ["CONVNEXT_TINY_STAGES", "LayerNorm2d", "Stem", "CNBlock",
            "Downsample", "ConvNeXtFeatures", "convnext_tiny_26_features",
            "convnext_tiny_13_features", "get_feature_dimensions",
-           "stage_layout"]
+           "stage_layout", "init_trunc_normal"]
 
 # (out_channels, num_blocks) per ConvNeXt-Tiny stage.
 CONVNEXT_TINY_STAGES = ((96, 3), (192, 3), (384, 9), (768, 3))
@@ -51,34 +63,63 @@ class Permute(nn.Module):
         return x.permute(*self.dims)
 
 
+def init_trunc_normal(m):
+    """The JAX package's ``truncated_normal(0.02)`` kernel init (N(0, 1)
+    cut at +-2, times 0.02) and a zero bias. ``trunc_normal_``'s bounds
+    are absolute, hence +-0.04."""
+    nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04)
+    nn.init.zeros_(m.bias)
+    return m
+
+
 class Stem(nn.Sequential):
     """4x4 stride-4 patchify conv + LayerNorm2d (``features.0``)."""
 
     def __init__(self, dim: int):
-        super().__init__(nn.Conv2d(3, dim, 4, stride=4),
+        super().__init__(init_trunc_normal(nn.Conv2d(3, dim, 4, stride=4)),
                          LayerNorm2d(dim, eps=1e-6))
 
 
 class CNBlock(nn.Module):
     """dw-conv7x7 -> LN -> Linear 4d -> GELU -> Linear d, layer scale,
-    residual (torchvision CNBlock, eval)."""
+    stochastic depth (probability ``sd_prob``), residual. ``fused_mlp``:
+    the body after the depthwise conv runs through K5/K6."""
 
-    def __init__(self, dim: int, layer_scale: float = 1e-6):
+    def __init__(self, dim: int, layer_scale: float = 1e-6,
+                 sd_prob: float = 0.0, fused_mlp: bool = False):
         super().__init__()
         self.block = nn.Sequential(
-            nn.Conv2d(dim, dim, 7, padding=3, groups=dim),
+            init_trunc_normal(nn.Conv2d(dim, dim, 7, padding=3, groups=dim)),
             Permute((0, 2, 3, 1)),
             nn.LayerNorm(dim, eps=1e-6),
-            nn.Linear(dim, 4 * dim),
+            init_trunc_normal(nn.Linear(dim, 4 * dim)),
             nn.GELU(),
-            nn.Linear(4 * dim, dim),
+            init_trunc_normal(nn.Linear(4 * dim, dim)),
             Permute((0, 3, 1, 2)),
         )
         self.layer_scale = nn.Parameter(torch.full((dim, 1, 1),
                                                    float(layer_scale)))
+        self.sd_prob = float(sd_prob)
+        self.fused_mlp = bool(fused_mlp)
 
-    def forward(self, x):
-        return x + self.layer_scale * self.block(x)
+    def forward(self, x, drop_mask=None):
+        """``x`` NCHW (a view of an NHWC tensor); ``drop_mask`` [B, 1, 1, 1]
+        applies stochastic depth."""
+        keep = 1.0 - self.sd_prob
+        if self.fused_mlp:
+            dw, _, ln, pw1, _, pw2, _ = self.block
+            xr = x.permute(0, 2, 3, 1)
+            z = fused_ln_mlp_residual_ad(
+                dw(x).permute(0, 2, 3, 1), xr, ln.weight, ln.bias,
+                pw1.weight, pw1.bias, pw2.weight, pw2.bias,
+                self.layer_scale.reshape(-1), ln.eps)
+            if drop_mask is not None:
+                z = xr + (z - xr) * drop_mask.to(z.dtype) / keep
+            return z.permute(0, 3, 1, 2)
+        h = self.layer_scale * self.block(x)
+        if drop_mask is not None:
+            h = h * drop_mask.to(h.dtype) / keep
+        return x + h
 
 
 class Downsample(nn.Sequential):
@@ -86,7 +127,8 @@ class Downsample(nn.Sequential):
 
     def __init__(self, in_dim: int, dim: int, stride: int):
         super().__init__(LayerNorm2d(in_dim, eps=1e-6),
-                         nn.Conv2d(in_dim, dim, 2, stride=stride))
+                         init_trunc_normal(
+                             nn.Conv2d(in_dim, dim, 2, stride=stride)))
 
 
 def stage_layout(stage_settings, num_stages, stride_threshold):
@@ -119,13 +161,17 @@ class ConvNeXtFeatures(nn.Module):
     """
 
     def __init__(self, stage_settings: Sequence = CONVNEXT_TINY_STAGES,
-                 stride_threshold: int = 100, num_stages: int = 7):
+                 stride_threshold: int = 100, num_stages: int = 7,
+                 stochastic_depth_prob: float = 0.1,
+                 fused_mlp: bool = False):
         super().__init__()
         self.stage_settings = tuple(tuple(s) for s in stage_settings)
         self.stride_threshold = int(stride_threshold)
         self.num_stages = int(num_stages)
         self.layout = stage_layout(self.stage_settings, self.num_stages,
                                    self.stride_threshold)
+        total_blocks = sum(n for _, n in self.stage_settings)
+        block_id = 0
         mods = [Stem(self.stage_settings[0][0])]
         for entry in self.layout:
             if entry[0] == "down":
@@ -133,9 +179,19 @@ class ConvNeXtFeatures(nn.Module):
                 mods.append(Downsample(in_ch, dim, stride))
             else:
                 _, _, dim, n_blocks = entry
-                mods.append(nn.Sequential(
-                    *[CNBlock(dim) for _ in range(n_blocks)]))
+                blocks = []
+                for _ in range(n_blocks):
+                    prob = stochastic_depth_prob * block_id / max(
+                        total_blocks - 1.0, 1.0)
+                    blocks.append(CNBlock(dim, sd_prob=prob,
+                                          fused_mlp=fused_mlp))
+                    block_id += 1
+                mods.append(nn.Sequential(*blocks))
         self.features = nn.Sequential(*mods)
+
+    def blocks(self):
+        """The CNBlocks in order (index = block_id)."""
+        return [m for m in self.modules() if isinstance(m, CNBlock)]
 
     @property
     def out_channels(self) -> int:
@@ -145,22 +201,45 @@ class ConvNeXtFeatures(nn.Module):
             return self.stage_settings[0][0]
         return last[3] if last[0] == "down" else last[2]
 
-    def forward(self, x):
-        """[B, H, W, 3] -> [B, H', W', C] features."""
-        h = self.features(x.permute(0, 3, 1, 2))
+    def forward(self, x, *, train: bool = False, generator=None,
+                drop_masks=None):
+        """[B, H, W, 3] -> [B, H', W', C] features. With ``train``, each
+        block with a nonzero drop probability draws its stochastic-depth
+        mask from ``generator``, unless ``drop_masks`` (indexed by
+        block_id) gives it."""
+        h = x.permute(0, 3, 1, 2)
+        block_id = 0
+        for mod in self.features:
+            if not isinstance(mod[0], CNBlock):
+                h = mod(h)
+                continue
+            for blk in mod:
+                mask = None
+                if train and blk.sd_prob > 0.0:
+                    if drop_masks is not None:
+                        mask = drop_masks[block_id]
+                    else:
+                        keep = torch.full((h.shape[0], 1, 1, 1),
+                                          1.0 - blk.sd_prob,
+                                          device=h.device)
+                        mask = torch.bernoulli(keep, generator=generator)
+                h = blk(h, mask)
+                block_id += 1
         return h.permute(0, 2, 3, 1)
 
 
-def convnext_tiny_26_features(num_stages: int = 7):
+def convnext_tiny_26_features(num_stages: int = 7, fused_mlp: bool = False):
     """Stride threshold 100 -> 26x26 latent at 224 input
     (reference convnext_features.py:38-65)."""
-    return ConvNeXtFeatures(stride_threshold=100, num_stages=num_stages)
+    return ConvNeXtFeatures(stride_threshold=100, num_stages=num_stages,
+                            fused_mlp=fused_mlp)
 
 
-def convnext_tiny_13_features(num_stages: int = 7):
+def convnext_tiny_13_features(num_stages: int = 7, fused_mlp: bool = False):
     """Stride threshold 300 -> 13x13 latent at 224 input
     (reference convnext_features.py:67-94)."""
-    return ConvNeXtFeatures(stride_threshold=300, num_stages=num_stages)
+    return ConvNeXtFeatures(stride_threshold=300, num_stages=num_stages,
+                            fused_mlp=fused_mlp)
 
 
 def get_feature_dimensions(use_mid_layers=False, num_stages=2,

@@ -39,9 +39,10 @@ class NonNegLinear(nn.Module):
 
 
 class AddOn(nn.Module):
-    """Optional 1x1 conv (``num_prototypes > 0``), then a per-patch softmax
-    or Gumbel-softmax over the prototype channels of an NHWC map. Train
-    mode gives soft samples, eval hard one-hot samples."""
+    """Optional 1x1 conv (``num_prototypes > 0``; xavier-uniform kernel,
+    zero bias, as in the JAX package), then a per-patch softmax or
+    Gumbel-softmax over the prototype channels of an NHWC map. Train mode
+    gives soft samples, eval hard one-hot samples."""
 
     def __init__(self, in_channels: int, num_prototypes: int = 0,
                  activation: str = "gumbel_softmax"):
@@ -51,6 +52,9 @@ class AddOn(nn.Module):
         self.activation = activation
         self.conv1x1 = (nn.Conv2d(in_channels, num_prototypes, 1)
                         if num_prototypes > 0 else None)
+        if self.conv1x1 is not None:
+            nn.init.xavier_uniform_(self.conv1x1.weight)
+            nn.init.zeros_(self.conv1x1.bias)
 
     def logits(self, features):
         """[B, H, W, C] -> [B, H, W, P] pre-activation prototype logits."""

@@ -5,6 +5,7 @@ pipnet/count_pipnet_utils.py:86-538). This slice carries the default
 ``onehot`` layer; the other four variants are ROADMAP Queue 1 work.
 """
 
+import torch
 import torch.nn as nn
 
 from ..ops.ste import create_modified_encoding, modified_onehot_ste
@@ -40,6 +41,12 @@ class OneHotIntermediate(nn.Module):
         else:
             enc = create_modified_encoding(x, self.max_count)
         return enc.reshape(enc.shape[0], -1)
+
+    def classifier_input_weight_matrix(self):
+        """[P, P * max_count] block indicator: prototype p owns classifier
+        inputs [p * M, (p + 1) * M)."""
+        eye = torch.eye(self.num_prototypes)
+        return eye.repeat_interleave(self.max_count, dim=1)
 
 
 def make_intermediate(kind: str, num_prototypes: int, max_count: int,

@@ -3,8 +3,10 @@
 Port of count_pipnet_tpu/models/pipnet.py (reference
 pipnet/count_pipnet.py:70-110): backbone -> add-on (gumbel / softmax) ->
 spatial SUM (counts) -> round + clamp to [0, max_count] -> intermediate ->
-non-negative classifier. Training returns raw counts, inference the clamped
-ones. Outputs are ``(proto_features [B, H, W, P], pooled [B, P], logits)``.
+non-negative classifier. Training returns raw counts (for the tanh loss),
+inference the clamped ones. Outputs are ``(proto_features [B, H, W, P],
+pooled [B, P], logits)``. ``--fused_blocks`` builds the backbone with the
+K5/K6 block body.
 
 ``PIPNet`` and the ResNet backbones are ROADMAP Queue 1 work.
 """
@@ -20,7 +22,7 @@ from .heads import AddOn, NonNegLinear
 from .intermediates import make_intermediate
 
 __all__ = ["CountPIPNet", "get_count_network", "build_backbone",
-           "BACKBONE_BUILDERS"]
+           "importance_per_class", "BACKBONE_BUILDERS"]
 
 BACKBONE_BUILDERS = {
     "convnext_tiny_26": convnext_tiny_26_features,
@@ -31,7 +33,7 @@ _NOT_PORTED = ("resnet18", "resnet34", "resnet50", "resnet50_inat",
 
 
 def build_backbone(net: str, use_mid_layers: bool = False,
-                   num_stages: int = 2):
+                   num_stages: int = 2, fused_mlp: bool = False):
     """Backbone factory (reference pipnet/pipnet.py:44-51)."""
     if net in _NOT_PORTED:
         raise NotImplementedError(
@@ -42,7 +44,7 @@ def build_backbone(net: str, use_mid_layers: bool = False,
             f"Network '{net}' is not supported. Supported: "
             f"{sorted(BACKBONE_BUILDERS) + sorted(_NOT_PORTED)}")
     return BACKBONE_BUILDERS[net](
-        num_stages=num_stages if use_mid_layers else 7)
+        num_stages=num_stages if use_mid_layers else 7, fused_mlp=fused_mlp)
 
 
 class CountPIPNet(nn.Module):
@@ -86,15 +88,32 @@ class CountPIPNet(nn.Module):
         return (clamped if inference else counts), out
 
     def forward(self, xs, *, inference: bool = False, train: bool = False,
-                tau: float = 1.0, generator=None, noise=None):
-        """``xs`` [B, H, W, 3]. ``generator`` / ``noise``: the Gumbel draw
-        (see ops.gumbel.gumbel_softmax)."""
-        features = self.backbone(xs)
+                tau: float = 1.0, generator=None, noise=None,
+                drop_masks=None):
+        """``xs`` [B, H, W, 3]. ``generator``: the stochastic-depth masks
+        (train mode) and the Gumbel draw; ``noise`` / ``drop_masks``
+        replace them (see ops.gumbel.gumbel_softmax and
+        ConvNeXtFeatures.forward)."""
+        features = self.backbone(xs, train=train, generator=generator,
+                                 drop_masks=drop_masks)
         proto = self.add_on(features, tau=tau, train=train,
                             generator=generator, noise=noise)
         counts = proto.float().sum(dim=(1, 2))
         pooled, out = self.head(counts, inference)
         return proto, pooled, out
+
+
+def importance_per_class(model: CountPIPNet, classifier_input_scalars=None):
+    """Virtual [num_classes, num_prototypes] importance matrix,
+    ``sum_d |attribution[p, d] * scalar[d]| * W[c, d]`` (the JAX package's
+    models/pipnet.py:importance_per_class; reference
+    count_pipnet.py:126-147, 283-321)."""
+    w = model.classification.weight.detach().float()
+    attribution = model.intermediate.classifier_input_weight_matrix().to(
+        w.device)
+    if classifier_input_scalars is not None:
+        attribution = attribution * classifier_input_scalars[None, :]
+    return w @ attribution.abs().t()
 
 
 def get_count_network(num_classes: int, args, max_count: int = 3,
@@ -107,7 +126,8 @@ def get_count_network(num_classes: int, args, max_count: int = 3,
             f"{sorted(BACKBONE_BUILDERS)}")
     backbone = build_backbone(
         args.net, use_mid_layers=getattr(args, "use_mid_layers", False),
-        num_stages=getattr(args, "num_stages", 2))
+        num_stages=getattr(args, "num_stages", 2),
+        fused_mlp=getattr(args, "fused_blocks", False))
     num_features = getattr(args, "num_features", 0) or 0
     num_prototypes = num_features if num_features > 0 \
         else backbone.out_channels

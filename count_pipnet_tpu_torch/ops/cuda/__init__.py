@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written Hopper kernels.
 
 The ``.cu`` sources next to this file are compiled at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into one shared
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3``, one nvcc process per
+source, all started together, and their objects are linked into one shared
 library under ``_build/`` (named by a hash of the sources and flags, so an
-edit rebuilds), and loaded with ``ctypes``. The kernels have plain C entry
+edit rebuilds), loaded with ``ctypes``. The kernels have plain C entry
 points that take raw device pointers and the CUDA stream; they launch and
 return ``cudaGetLastError()``. :func:`check` raises on a non-zero code —
 there is no fallback to the plain PyTorch versions.
@@ -22,20 +23,24 @@ import time
 from pathlib import Path
 
 __all__ = ["library", "check", "ptr", "stream_ptr", "launch_counts",
-           "reset_launch_counts", "build_info"]
+           "launch_widths", "count_launch", "reset_launch_counts",
+           "build_info"]
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
-SOURCES = ("fused_block.cu", "gumbel_head.cu")
+SOURCES = ("fused_block.cu", "gumbel_head.cu", "fused_mlp.cu",
+           "fused_mlp_bwd.cu")
 HEADERS = ("block.cuh", "common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Kernel launches, by wrapper name: each wrapper adds one where it launches
 # its kernel, and nowhere else.
 launch_counts = {"fused_block": 0, "gumbel_hard_counts": 0,
-                 "fused_block_gumbel_counts": 0}
+                 "fused_block_gumbel_counts": 0, "fused_ln_mlp_residual": 0,
+                 "fused_mlp_bwd": 0}
+# The same launches by (wrapper name, channel width).
+launch_widths = {}
 
 # Set by the first build in this process: seconds spent, library path and
 # nvcc's resource report (registers, shared memory, spills per kernel).
@@ -52,6 +57,7 @@ _BLOCK_ARGS = [_I, _I, _I, _I, _I, _I,            # x_bf16 int8 B H W C
                _P, _P, _P, _P,                    # dwk dwb lns lnb
                _P, _P, _P, _P, _P, _P, _P, _P,    # w1 s1 b1 i1 w2 s2 b2 i2
                _P, _F]                            # g eps
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # x, out, x_bf16, int8, B, H, W, C, ..., stream
     "cpt_fused_block": [_P, _P] + _BLOCK_ARGS + [_P],
@@ -60,12 +66,32 @@ _SIGNATURES = {
     # x, x_bf16, int8, B, H, W, C, ..., noise, counts, seed, stream
     "cpt_fused_block_gumbel_counts": [_P] + _BLOCK_ARGS + [_P, _P, _U64,
                                                            _P],
+    # x, res, out, x_bf16, res_bf16, R, C, lns, lnb, w1, b1, w2, b2, g,
+    # eps, stream
+    "cpt_fused_mlp": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                      _P, _F, _P],
+    # R, C, x_bf16, g_bf16 -> grid_rows, splits
+    "cpt_fused_mlp_bwd_plan": [_I, _I, _I, _I, _IP, _IP],
+    # x, g, dx, x_bf16, g_bf16, R, C, lns, lnb, w1, w1t, w2t, b1, gamma,
+    # eps, nb, gb, ab, dhb, part, grid_rows, ws, splits, dw1, dw2r, vec,
+    # stream
+    "cpt_fused_mlp_bwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _F, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                          _P, _P, _P],
 }
 
 
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+    launch_widths.clear()
+
+
+def count_launch(name, width):
+    """Add one launch of ``name`` at channel width ``width``."""
+    launch_counts[name] += 1
+    key = (name, int(width))
+    launch_widths[key] = launch_widths.get(key, 0) + 1
 
 
 def _nvcc():
@@ -97,13 +123,27 @@ def _build():
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(SRC_DIR / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log.write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
+        objs = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(SRC_DIR / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        failed = [f"nvcc {s} failed ({p.returncode}):\n{out[-8000:]}"
+                  for s, p, out in zip(SOURCES, procs, outs) if p.returncode]
+        if not failed:
+            res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                  *map(str, objs)],
+                                 capture_output=True, text=True)
+            outs.append(res.stdout + res.stderr)
+            if res.returncode:
+                failed.append(f"nvcc link failed ({res.returncode}):\n"
+                              f"{outs[-1][-8000:]}")
+        log.write_text("".join(outs))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("\n".join(failed))
         os.replace(tmp, so)
     build_info.update(seconds=time.perf_counter() - t0, path=str(so),
                       log=log.read_text() if log.exists() else "")

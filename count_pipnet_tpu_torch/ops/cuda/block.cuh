@@ -22,6 +22,10 @@
 //   3. Epilogue: dequantize, * gamma, + residual; store (A) or, with HEAD,
 //      the noisy argmax histogram of each row (C) - the plane is not stored.
 //
+// With DW = false the same kernel is K5 (fused_mlp.cu): step 1a loads the
+// rows of x (the depthwise output, computed outside) instead of convolving,
+// and the epilogue adds a separate residual plane of type TR.
+//
 // The GEMMs run on the tensor cores through mma.sync (m16n8k16 bf16,
 // m16n8k32 s8) with the weights read from L2 as [out, in] rows. wgmma, TMA
 // and a multi-stage weight pipeline are later work.
@@ -38,8 +42,9 @@ constexpr int kHC = 128;       // hidden chunk
 constexpr int kThreads = 256;  // 8 warps
 
 struct BlockParams {
-  const void* x;  // [B*H*W, C] T
-  void* out;      // [B*H*W, C] T (kernel A)
+  const void* x;    // [B*H*W, C] T
+  void* out;        // [B*H*W, C] TR (kernels A and K5)
+  const void* res;  // [B*H*W, C] TR residual (K5; kernel A adds x)
   int B, H, W, C;
   const float* dwk;  // [49, C], tap (dy, dx) at row dy * 7 + dx
   const float* dwb;  // [C]
@@ -124,7 +129,7 @@ __host__ __device__ inline size_t block_smem_bytes(int C) {
          + (size_t)kTM * (kHC + M::kPad) * sizeof(typename M::E);  // hidden
 }
 
-template <typename T, bool INT8, bool HEAD>
+template <typename T, bool INT8, bool HEAD, bool DW = true, typename TR = T>
 __global__ void __launch_bounds__(kThreads)
     fused_block_kernel(const BlockParams p) {
   using M = Mode<INT8>;
@@ -153,7 +158,13 @@ __global__ void __launch_bounds__(kThreads)
   // window slides one column, so a pixel costs 7 loads, not 49.
   // Neighbouring threads read neighbouring channels (coalesced). Below 256
   // channels the rows are split into segs runs so more threads work.
-  {
+  // Without DW (K5) the rows of x are the LayerNorm input as they are.
+  if constexpr (!DW) {
+    for (int idx = tid; idx < kTM * C; idx += kThreads) {
+      const int r = idx / C, c = idx - r * C, row = row0 + r;
+      accf[r * as + c] = row < total ? to_f32(x[(size_t)row * C + c]) : 0.0f;
+    }
+  } else {
     const int segs = C >= kThreads ? 1 : kThreads / C;  // 1, 2, 4 or 8
     const int seg_rows = kTM / segs;
     for (int t = tid; t < C * segs; t += kThreads) {
@@ -321,12 +332,13 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
   if constexpr (!HEAD) {
-    T* out = static_cast<T*>(p.out);
+    TR* out = static_cast<TR*>(p.out);
+    const TR* res = static_cast<const TR*>(DW ? p.x : p.res);
     for (int idx = tid; idx < kTM * C; idx += kThreads) {
       const int r = idx / C, c = idx - r * C, row = row0 + r;
       if (row >= total) continue;
       const size_t o = (size_t)row * C + c;
-      store_as(out + o, to_f32(x[o]) + branch(r, c) * p.g[c]);
+      store_as(out + o, to_f32(res[o]) + branch(r, c) * p.g[c]);
     }
   } else {
     for (int r = warp; r < kTM; r += kThreads / 32) {
@@ -374,7 +386,7 @@ inline BlockParams make_block_params(
     const float* s2, const float* b2, const float* i2, const float* g,
     float eps) {
   BlockParams p;
-  p.x = x; p.out = out; p.B = B; p.H = H; p.W = W; p.C = C;
+  p.x = x; p.out = out; p.res = nullptr; p.B = B; p.H = H; p.W = W; p.C = C;
   p.dwk = dwk; p.dwb = dwb; p.lns = lns; p.lnb = lnb;
   p.w1 = w1; p.s1 = s1; p.b1 = b1; p.i1 = i1;
   p.w2 = w2; p.s2 = s2; p.b2 = b2; p.i2 = i2;

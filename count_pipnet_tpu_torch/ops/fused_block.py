@@ -179,5 +179,5 @@ def fused_block(x, pb, eps: float = 1e-6):
         x.data_ptr(), out.data_ptr(), *block_args(x, pb), float(eps),
         _cuda.stream_ptr(x.device))
     _cuda.check(code, "fused_block")
-    _cuda.launch_counts["fused_block"] += 1
+    _cuda.count_launch("fused_block", x.shape[-1])
     return out

@@ -134,7 +134,7 @@ def gumbel_hard_counts(feats, seed: int = 0, noise=None):
         counts.data_ptr(), b, h * w, c, int(seed) & (2**64 - 1),
         _cuda.stream_ptr(feats.device))
     _cuda.check(code, "gumbel_hard_counts")
-    _cuda.launch_counts["gumbel_hard_counts"] += 1
+    _cuda.count_launch("gumbel_hard_counts", c)
     return counts
 
 
@@ -166,5 +166,5 @@ def fused_block_gumbel_counts(x, pb, seed: int = 0, noise=None,
         counts.data_ptr(), int(seed) & (2**64 - 1),
         _cuda.stream_ptr(x.device))
     _cuda.check(code, "fused_block_gumbel_counts")
-    _cuda.launch_counts["fused_block_gumbel_counts"] += 1
+    _cuda.count_launch("fused_block_gumbel_counts", c)
     return counts
