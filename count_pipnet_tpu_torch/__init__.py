@@ -8,7 +8,9 @@ the JAX package's; the public interface keeps its NHWC layout
 
 It covers the gumbel-hard Count-PIPNet serving path
 (``models/serving.py``, ``serving/engine.py``) and training
-(``python -m count_pipnet_tpu_torch.main``, ``train/``), with
-``--fused_blocks`` on the hand-written block-MLP kernels; ROADMAP.md lists
-the rest.
+(``python -m count_pipnet_tpu_torch.main``, ``train/``), with the
+flagship configs' routes on the hand-written kernels (``--fused_blocks``,
+``--fused_whole_blocks``, ``--fused_dwconv``) and the two views made on
+the device (``--device_augment``, ``--device_geometric``); ROADMAP.md
+lists the rest.
 """

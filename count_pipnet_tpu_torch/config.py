@@ -102,11 +102,15 @@ def build_parser() -> argparse.ArgumentParser:
              "its metrics (they are read once per epoch), so the host "
              "runs ahead of the device as far as CUDA's queue allows")
     add("--device_augment", action="store_true",
-        help="on-device two-view augmentation: not ported yet (ROADMAP "
-             "Queue 1 item 4)")
+        help="two-view augmentation on the card (synthetic shapes / MNIST "
+             "recipes): the host loader ships one uint8 image per sample, "
+             "and color jitter, crop, gaussian noise and normalization of "
+             "both views run as torch ops on the device "
+             "(data/device_augment.py)")
     add("--device_geometric", action="store_true",
-        help="on-device geometric augmentation: not ported yet (ROADMAP "
-             "Queue 1 item 4)")
+        help="with --device_augment on the shapes recipes: also the shared "
+             "transform1 (Resize + RandomRotation + RandomResizedCrop) on "
+             "the card, as one bilinear resample of the raw image")
     add("--cache_decoded", action="store_true",
         help="memoize decoded training/eval images in host RAM (skips "
              "PNG/JPEG decode after the first epoch; ~1.5 GB at 10k "
@@ -121,8 +125,12 @@ def build_parser() -> argparse.ArgumentParser:
              "Uniform image sizes required (synthetic datasets); "
              "falls back to the RAM cache otherwise")
     add("--fused_whole_blocks", action="store_true",
-        help="whole ConvNeXt blocks through one kernel in training: not "
-             "ported yet (ROADMAP Queue 2 item 5)")
+        help="whole ConvNeXt blocks in training through the hand-written "
+             "block kernel (kernel A: depthwise conv, LayerNorm, MLP, "
+             "layer scale and residual, bf16 GEMMs) as the forward; the "
+             "backward recomputes the block in PyTorch ops. tanh-approx "
+             "GELU; supersedes --fused_blocks and --fused_dwconv. Same "
+             "parameters as the default route; checkpoints interchange")
     add("--fused_blocks", action="store_true",
         help="run the ConvNeXt block bodies after the depthwise conv "
              "through the hand-written kernels K5 (forward) and K6 "
@@ -137,8 +145,10 @@ def build_parser() -> argparse.ArgumentParser:
              "requires_grad off, so autograd never computes their "
              "backward in any phase")
     add("--fused_dwconv", action="store_true",
-        help="depthwise conv forward through its own kernel: not ported "
-             "yet (ROADMAP Queue 2 item 8)")
+        help="the depthwise 7x7 conv forward through the hand-written "
+             "kernel K7, its gradients through PyTorch's conv backward; "
+             "composes with --fused_blocks. Same parameters as the "
+             "default route; checkpoints interchange")
     add("--viz_topk", type=_bool, choices=[True, False], default=True,
         help="save per-prototype top-k patch PNGs during the best-model "
              "visualization (reference vis_pipnet plot_topk)")

@@ -27,7 +27,7 @@ import numpy as np
 __all__ = [
     "Compose", "Resize", "RandomHorizontalFlip", "RandomCrop",
     "RandomResizedCrop", "RandomRotation", "RandomAffine", "ColorJitter",
-    "Grayscale3", "ToArray", "Normalize", "GaussianNoise",
+    "Grayscale3", "ToArray", "ToUint8Array", "Normalize", "GaussianNoise",
     "TrivialAugmentWide", "TrivialAugmentWideNoColor",
     "TrivialAugmentWideNoShape", "TrivialAugmentWideNoShapeWithColor",
     "IMAGENET_MEAN", "IMAGENET_STD",
@@ -224,6 +224,19 @@ class ToArray:
 
     def __call__(self, img, rng=None):
         arr = np.asarray(img, dtype=np.float32) / 255.0
+        if arr.ndim == 2:
+            arr = np.stack([arr] * 3, axis=-1)
+        return arr
+
+
+class ToUint8Array:
+    """PIL -> uint8 HWC (no host float conversion). The device-augment
+    transport format: 4x fewer bytes over the host->device link than
+    ToArray's float32, and bit-identical once the device divides by 255
+    (ToArray is exactly uint8/255)."""
+
+    def __call__(self, img, rng=None):
+        arr = np.asarray(img, dtype=np.uint8)
         if arr.ndim == 2:
             arr = np.stack([arr] * 3, axis=-1)
         return arr

@@ -197,10 +197,15 @@ class TransformedDataset:
 class TwoAugDataset:
     """Two-view contrastive item: shared geometric ``transform1``, then two
     independent photometric ``transform2`` draws
-    (reference util/data.py:596-617)."""
+    (reference util/data.py:596-617).
+
+    With ``single_view=True`` the item is ``(v1, target)``: used when the
+    photometric second stage runs on the device (data/device_augment.py),
+    so the host ships one array per sample instead of decoding, stacking
+    and then discarding an identical second view."""
 
     def __init__(self, base: ImageFolder, transform1: Callable,
-                 transform2: Callable):
+                 transform2: Callable, single_view: bool = False):
         self.base = base
         self.classes = base.classes
         self.class_to_idx = base.class_to_idx
@@ -208,6 +213,7 @@ class TwoAugDataset:
         self.imgs = base.imgs
         self.transform1 = transform1
         self.transform2 = transform2
+        self.single_view = single_view
 
     def __len__(self):
         return len(self.base)
@@ -218,6 +224,8 @@ class TwoAugDataset:
         target = self.base.targets[index]
         img = self.transform1(img, rng)
         v1 = self.transform2(img, rng)
+        if self.single_view:
+            return v1, target
         v2 = self.transform2(img, rng)
         return v1, v2, target
 

@@ -1,10 +1,11 @@
 """Dataset registry: name -> directories + augmentation recipe; the
 7-loader contract.
 
-The port's copy of count_pipnet_tpu/data/registry.py. Left out: the
-device-side augmentation (``--device_augment``, ROADMAP Queue 1 item 4)
-and the multi-host loader slices (Queue 1 item 5); a missing synthetic
-dataset is reported with the generator to run instead of being rebuilt.
+The port's copy of count_pipnet_tpu/data/registry.py, with the
+device-side augmentation (``--device_augment``, ``--device_geometric``:
+data/device_augment.py). Left out: the multi-host loader slices (ROADMAP
+Queue 1 item 5); a missing synthetic dataset is reported with the
+generator to run instead of being rebuilt.
 
 Reference: util/data.py:17-259. Datasets: CUB-200-2011, pets, partimagenet,
 CARS, grayscale_example, geometric_shapes, geometric_shapes_gaussian_noise,
@@ -26,7 +27,7 @@ from .datasets import (
 from .loader import DataLoader, make_weighted_sample_weights
 
 __all__ = ["get_data", "get_dataloaders", "validate_dataset_paths",
-           "DATASET_RECIPES"]
+           "device_augment_config", "DATASET_RECIPES"]
 
 
 def _no_augment(img_size, grayscale=False):
@@ -215,6 +216,43 @@ def validate_dataset_paths(args, basepath="./"):
             "generate_digits / preprocess_cub (see README.md Quick start).")
 
 
+def device_augment_config(args):
+    """The ``DeviceAugmentConfig`` of ``--device_augment`` (and
+    ``--device_geometric``) for ``args.dataset``, or None. The two-view
+    loaders then ship the t1 crop (with ``geo``, the raw decoded image) as
+    uint8; color jitter + crop + noise + normalize (and the shared
+    transform1) run on the card (data/device_augment.py). Supported for
+    the synthetic recipes whose transform2 is purely photometric; others
+    print the fallback to host augmentation."""
+    if not getattr(args, "device_augment", False):
+        return None
+    synth = ("geometric_shapes", "geometric_shapes_gaussian_noise",
+             "geometric_shapes_224_gaussian_noise", "mnist_counting",
+             "shapes_200", "shapes_200_x4")
+    if args.dataset not in synth:
+        print(f"(--device_augment unsupported for {args.dataset}; "
+              "using host augmentation)", flush=True)
+        return None
+    from .device_augment import DeviceAugmentConfig
+    # shapes_200* use the gaussian-noise shapes recipe
+    # (_shapes_recipe(s, True)) despite their names
+    noisy = ("gaussian_noise" in args.dataset
+             or args.dataset.startswith("shapes_200"))
+    geo = bool(getattr(args, "device_geometric", False))
+    if geo and args.dataset == "mnist_counting":
+        # the MNIST recipe's transform1 is a RandomAffine with
+        # translate/scale, not covered by the device geo path
+        print("(--device_geometric unsupported for mnist_counting; "
+              "shared transform1 stays on host)", flush=True)
+        geo = False
+    return DeviceAugmentConfig(
+        img_size=args.image_size, brightness=0.1, contrast=0.1,
+        noise_std=(0.1 if noisy else 0.0), noise_p=0.5,
+        geo=geo, geo_rot=10.0, geo_out=args.image_size + 8,
+        geo_scale=(0.95, 1.0), geo_fill=1.0,
+        geo_canvas=args.image_size + 32)
+
+
 def get_data(args, basepath="./"):
     """Build the dataset objects for a named dataset.
 
@@ -232,10 +270,12 @@ def get_data(args, basepath="./"):
     t1, t1p, t2 = recipe_fn(args.image_size)
     no_aug = _no_augment(args.image_size, grayscale=grayscale)
 
-    if getattr(args, "device_augment", False):
-        raise NotImplementedError(
-            "--device_augment is not ported to PyTorch yet (ROADMAP Queue 1 "
-            "item 4)")
+    device_aug_cfg = device_augment_config(args)
+    t2_host = t2
+    if device_aug_cfg is not None:
+        # the host stops after t1 + decode; uint8 transport (4x fewer bytes
+        # to the device, exactly ToArray's value once divided by 255)
+        t2 = A.Compose([A.ToUint8Array()])
 
     cache = getattr(args, "cache_decoded", False)
     cache_dir = getattr(args, "decode_cache_dir", "")
@@ -258,10 +298,23 @@ def get_data(args, basepath="./"):
             ImageFolder(base / test_d, cache_decoded=cache,
                         decode_cache_dir=cache_dir), no_aug)
 
-    trainset = Subset(TwoAugDataset(trainval, t1, t2), train_indices)
+    # --device_geometric: the two-view loaders ship the raw decoded image
+    # (the synthetic generators emit a uniform size); Resize + rotation +
+    # RandomResizedCrop all run on the card as one resample inside the
+    # shared transform1 (data/device_augment.apply_geo).
+    # train_normal_augment below keeps the full host chain.
+    t1_twoview = t1
+    if device_aug_cfg is not None and device_aug_cfg.geo:
+        t1_twoview = A.Compose([])
+
+    trainset = Subset(
+        TwoAugDataset(trainval, t1_twoview, t2,
+                      single_view=device_aug_cfg is not None),
+        train_indices)
+    trainset.device_augment_cfg = device_aug_cfg
     trainset_normal = Subset(TransformedDataset(trainval, no_aug),
                              train_indices)
-    both = A.Compose([t1, t2])
+    both = A.Compose([t1, t2_host])
     trainset_normal_augment = Subset(TransformedDataset(trainval, both),
                                      train_indices)
     projectset = TransformedDataset(
@@ -282,8 +335,11 @@ def get_data(args, basepath="./"):
         if test_d is None:
             pre_indices, _ = stratified_split(
                 pre_base.targets, args.validation_size, args.seed)
-        trainset_pretraining = Subset(TwoAugDataset(pre_base, t1p, t2),
-                                      pre_indices)
+        trainset_pretraining = Subset(
+            TwoAugDataset(pre_base, t1p, t2,
+                          single_view=device_aug_cfg is not None),
+            pre_indices)
+        trainset_pretraining.device_augment_cfg = device_aug_cfg
 
     return (trainset, trainset_pretraining, trainset_normal,
             trainset_normal_augment, projectset, testset, testset_projection,
@@ -308,10 +364,14 @@ def get_dataloaders(args, basepath="./", test_set_projection_full=False):
     trainloader = DataLoader(
         trainset, args.batch_size, shuffle=shuffle, drop_last=True,
         sample_weights=sample_weights, **common)
+    trainloader.device_augment_cfg = getattr(trainset,
+                                             "device_augment_cfg", None)
+    pre_set = trainset_pretraining or trainset
     trainloader_pretraining = DataLoader(
-        trainset_pretraining or trainset, args.batch_size_pretrain,
-        shuffle=shuffle, drop_last=True, sample_weights=sample_weights,
-        **common)
+        pre_set, args.batch_size_pretrain, shuffle=shuffle, drop_last=True,
+        sample_weights=sample_weights, **common)
+    trainloader_pretraining.device_augment_cfg = getattr(
+        pre_set, "device_augment_cfg", None)
     trainloader_normal = DataLoader(
         trainset_normal, args.batch_size, shuffle=shuffle, drop_last=True,
         sample_weights=sample_weights, **common)

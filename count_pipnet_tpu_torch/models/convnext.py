@@ -21,10 +21,21 @@ Training mode (``train=True``) applies stochastic depth with the JAX rule
 counts all 18 blocks even when ``num_stages`` truncates the net: a
 per-sample mask [B, 1, 1, 1] drawn from a ``torch.Generator`` (or given as
 ``drop_masks``), divided by the keep probability. The eager block uses
-erf-GELU like torchvision and the flax module. With ``fused_mlp``
-(``--fused_blocks``) the block body after the depthwise conv runs through
-K5 forward and K6 backward (ops/fused_mlp.py), with tanh-GELU as in JAX,
-and stochastic depth scales the branch: ``z = x + (z - x) * mask / keep``.
+erf-GELU like torchvision and the flax module. The alternative block
+routes, with the JAX package's semantics (its convnext.py:105-165) and the
+same parameters, so checkpoints interchange:
+
+* ``fused_mlp`` (``--fused_blocks``): the block body after the depthwise
+  conv through K5 forward and K6 backward (ops/fused_mlp.py), tanh-GELU;
+* ``fused_dwconv`` (``--fused_dwconv``): the depthwise conv through K7
+  forward and PyTorch's conv backward (ops/dwconv_bwd.py), in the autocast
+  dtype when autocast is on; it composes with ``fused_mlp``;
+* ``fused_whole_block`` (``--fused_whole_blocks``): the whole block through
+  kernel A forward and a recompute backward (ops/fused_block.py:
+  fused_block_ad), tanh-GELU; it supersedes the other two.
+
+On the fused routes stochastic depth scales the branch:
+``z = x + (z - x) * mask / keep``.
 """
 
 from typing import Sequence
@@ -33,6 +44,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.dwconv_bwd import dwconv7_pfwd_ad
+from ..ops.fused_block import fused_block_ad
 from ..ops.fused_mlp import fused_ln_mlp_residual_ad
 
 __all__ = ["CONVNEXT_TINY_STAGES", "LayerNorm2d", "Stem", "CNBlock",
@@ -82,11 +95,14 @@ class Stem(nn.Sequential):
 
 class CNBlock(nn.Module):
     """dw-conv7x7 -> LN -> Linear 4d -> GELU -> Linear d, layer scale,
-    stochastic depth (probability ``sd_prob``), residual. ``fused_mlp``:
-    the body after the depthwise conv runs through K5/K6."""
+    stochastic depth (probability ``sd_prob``), residual. ``fused_mlp``,
+    ``fused_dwconv``, ``fused_whole_block``: the kernel routes of the
+    module docstring."""
 
     def __init__(self, dim: int, layer_scale: float = 1e-6,
-                 sd_prob: float = 0.0, fused_mlp: bool = False):
+                 sd_prob: float = 0.0, fused_mlp: bool = False,
+                 fused_whole_block: bool = False,
+                 fused_dwconv: bool = False):
         super().__init__()
         self.block = nn.Sequential(
             init_trunc_normal(nn.Conv2d(dim, dim, 7, padding=3, groups=dim)),
@@ -101,25 +117,49 @@ class CNBlock(nn.Module):
                                                    float(layer_scale)))
         self.sd_prob = float(sd_prob)
         self.fused_mlp = bool(fused_mlp)
+        self.fused_whole_block = bool(fused_whole_block)
+        self.fused_dwconv = bool(fused_dwconv)
 
     def forward(self, x, drop_mask=None):
         """``x`` NCHW (a view of an NHWC tensor); ``drop_mask`` [B, 1, 1, 1]
         applies stochastic depth."""
         keep = 1.0 - self.sd_prob
-        if self.fused_mlp:
-            dw, _, ln, pw1, _, pw2, _ = self.block
-            xr = x.permute(0, 2, 3, 1)
-            z = fused_ln_mlp_residual_ad(
-                dw(x).permute(0, 2, 3, 1), xr, ln.weight, ln.bias,
-                pw1.weight, pw1.bias, pw2.weight, pw2.bias,
-                self.layer_scale.reshape(-1), ln.eps)
+        dw, _, ln, pw1, _, pw2, _ = self.block
+        xr = x.permute(0, 2, 3, 1)
+        if self.fused_whole_block or self.fused_mlp:
+            if self.fused_whole_block:
+                z = fused_block_ad(
+                    xr, dw.weight, dw.bias, ln.weight, ln.bias, pw1.weight,
+                    pw1.bias, pw2.weight, pw2.bias,
+                    self.layer_scale.reshape(-1), ln.eps)
+            else:
+                z = fused_ln_mlp_residual_ad(
+                    self._dwconv(x, xr), xr, ln.weight, ln.bias,
+                    pw1.weight, pw1.bias, pw2.weight, pw2.bias,
+                    self.layer_scale.reshape(-1), ln.eps)
             if drop_mask is not None:
                 z = xr + (z - xr) * drop_mask.to(z.dtype) / keep
             return z.permute(0, 3, 1, 2)
-        h = self.layer_scale * self.block(x)
+        if self.fused_dwconv:
+            h = self.block[1:](self._dwconv(x, xr).permute(0, 3, 1, 2))
+        else:
+            h = self.block(x)
+        h = self.layer_scale * h
         if drop_mask is not None:
             h = h * drop_mask.to(h.dtype) / keep
         return x + h
+
+    def _dwconv(self, x, xr):
+        """The depthwise conv's NHWC output: K7 under ``fused_dwconv``
+        (in the autocast dtype when autocast is on, as the default route's
+        conv), else the module's conv."""
+        dw = self.block[0]
+        if not self.fused_dwconv:
+            return dw(x).permute(0, 2, 3, 1)
+        dev = x.device.type
+        dtype = (torch.get_autocast_dtype(dev)
+                 if torch.is_autocast_enabled(dev) else x.dtype)
+        return dwconv7_pfwd_ad(xr, dw.weight, dw.bias, dtype)
 
 
 class Downsample(nn.Sequential):
@@ -163,7 +203,8 @@ class ConvNeXtFeatures(nn.Module):
     def __init__(self, stage_settings: Sequence = CONVNEXT_TINY_STAGES,
                  stride_threshold: int = 100, num_stages: int = 7,
                  stochastic_depth_prob: float = 0.1,
-                 fused_mlp: bool = False):
+                 fused_mlp: bool = False, fused_whole_block: bool = False,
+                 fused_dwconv: bool = False):
         super().__init__()
         self.stage_settings = tuple(tuple(s) for s in stage_settings)
         self.stride_threshold = int(stride_threshold)
@@ -183,8 +224,10 @@ class ConvNeXtFeatures(nn.Module):
                 for _ in range(n_blocks):
                     prob = stochastic_depth_prob * block_id / max(
                         total_blocks - 1.0, 1.0)
-                    blocks.append(CNBlock(dim, sd_prob=prob,
-                                          fused_mlp=fused_mlp))
+                    blocks.append(CNBlock(
+                        dim, sd_prob=prob, fused_mlp=fused_mlp,
+                        fused_whole_block=fused_whole_block,
+                        fused_dwconv=fused_dwconv))
                     block_id += 1
                 mods.append(nn.Sequential(*blocks))
         self.features = nn.Sequential(*mods)
@@ -228,18 +271,26 @@ class ConvNeXtFeatures(nn.Module):
         return h.permute(0, 2, 3, 1)
 
 
-def convnext_tiny_26_features(num_stages: int = 7, fused_mlp: bool = False):
+def convnext_tiny_26_features(num_stages: int = 7, fused_mlp: bool = False,
+                              fused_whole_block: bool = False,
+                              fused_dwconv: bool = False):
     """Stride threshold 100 -> 26x26 latent at 224 input
     (reference convnext_features.py:38-65)."""
     return ConvNeXtFeatures(stride_threshold=100, num_stages=num_stages,
-                            fused_mlp=fused_mlp)
+                            fused_mlp=fused_mlp,
+                            fused_whole_block=fused_whole_block,
+                            fused_dwconv=fused_dwconv)
 
 
-def convnext_tiny_13_features(num_stages: int = 7, fused_mlp: bool = False):
+def convnext_tiny_13_features(num_stages: int = 7, fused_mlp: bool = False,
+                              fused_whole_block: bool = False,
+                              fused_dwconv: bool = False):
     """Stride threshold 300 -> 13x13 latent at 224 input
     (reference convnext_features.py:67-94)."""
     return ConvNeXtFeatures(stride_threshold=300, num_stages=num_stages,
-                            fused_mlp=fused_mlp)
+                            fused_mlp=fused_mlp,
+                            fused_whole_block=fused_whole_block,
+                            fused_dwconv=fused_dwconv)
 
 
 def get_feature_dimensions(use_mid_layers=False, num_stages=2,

@@ -5,8 +5,9 @@ pipnet/count_pipnet.py:70-110): backbone -> add-on (gumbel / softmax) ->
 spatial SUM (counts) -> round + clamp to [0, max_count] -> intermediate ->
 non-negative classifier. Training returns raw counts (for the tanh loss),
 inference the clamped ones. Outputs are ``(proto_features [B, H, W, P],
-pooled [B, P], logits)``. ``--fused_blocks`` builds the backbone with the
-K5/K6 block body.
+pooled [B, P], logits)``. ``--fused_blocks``, ``--fused_dwconv`` and
+``--fused_whole_blocks`` build the backbone on the kernel block routes
+(models/convnext.py).
 
 ``PIPNet`` and the ResNet backbones are ROADMAP Queue 1 work.
 """
@@ -33,7 +34,9 @@ _NOT_PORTED = ("resnet18", "resnet34", "resnet50", "resnet50_inat",
 
 
 def build_backbone(net: str, use_mid_layers: bool = False,
-                   num_stages: int = 2, fused_mlp: bool = False):
+                   num_stages: int = 2, fused_mlp: bool = False,
+                   fused_whole_block: bool = False,
+                   fused_dwconv: bool = False):
     """Backbone factory (reference pipnet/pipnet.py:44-51)."""
     if net in _NOT_PORTED:
         raise NotImplementedError(
@@ -44,7 +47,8 @@ def build_backbone(net: str, use_mid_layers: bool = False,
             f"Network '{net}' is not supported. Supported: "
             f"{sorted(BACKBONE_BUILDERS) + sorted(_NOT_PORTED)}")
     return BACKBONE_BUILDERS[net](
-        num_stages=num_stages if use_mid_layers else 7, fused_mlp=fused_mlp)
+        num_stages=num_stages if use_mid_layers else 7, fused_mlp=fused_mlp,
+        fused_whole_block=fused_whole_block, fused_dwconv=fused_dwconv)
 
 
 class CountPIPNet(nn.Module):
@@ -127,7 +131,9 @@ def get_count_network(num_classes: int, args, max_count: int = 3,
     backbone = build_backbone(
         args.net, use_mid_layers=getattr(args, "use_mid_layers", False),
         num_stages=getattr(args, "num_stages", 2),
-        fused_mlp=getattr(args, "fused_blocks", False))
+        fused_mlp=getattr(args, "fused_blocks", False),
+        fused_whole_block=getattr(args, "fused_whole_blocks", False),
+        fused_dwconv=getattr(args, "fused_dwconv", False))
     num_features = getattr(args, "num_features", 0) or 0
     num_prototypes = num_features if num_features > 0 \
         else backbone.out_channels

@@ -12,8 +12,8 @@ logits [B, K])`` and never builds the [B, H, W, P] prototype maps.
 * ``num_features > 0``: every block runs kernel A, the add-on 1x1 conv is a
   PyTorch op, and the head is kernel B.
 
-The softmax serving path (``make_serving_fn`` with the fused count head)
-is ROADMAP Queue 1 work.
+The softmax serving path (``make_serving_fn`` with the fused count head,
+kernel 9) is ROADMAP Queue 2 item 9.
 """
 
 import itertools

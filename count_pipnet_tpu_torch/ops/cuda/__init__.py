@@ -29,7 +29,7 @@ __all__ = ["library", "check", "ptr", "stream_ptr", "launch_counts",
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
 SOURCES = ("fused_block.cu", "gumbel_head.cu", "fused_mlp.cu",
-           "fused_mlp_bwd.cu")
+           "fused_mlp_bwd.cu", "dwconv.cu", "dwconv_wgrad.cu")
 HEADERS = ("block.cuh", "common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # its kernel, and nowhere else.
 launch_counts = {"fused_block": 0, "gumbel_hard_counts": 0,
                  "fused_block_gumbel_counts": 0, "fused_ln_mlp_residual": 0,
-                 "fused_mlp_bwd": 0}
+                 "fused_mlp_bwd": 0, "dwconv7": 0, "dwconv7_wgrad": 0}
 # The same launches by (wrapper name, channel width).
 launch_widths = {}
 
@@ -78,6 +78,10 @@ _SIGNATURES = {
     "cpt_fused_mlp_bwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P, _F, _P, _P, _P, _P, _P, _I, _P, _I, _P,
                           _P, _P, _P],
+    # x, out, x_bf16, out_bf16, B, H, W, C, w, bias, stream
+    "cpt_dwconv7": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # x, g, bf16, B, H, W, C, seg, chunks, part, out, stream
+    "cpt_dwconv7_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -121,6 +121,76 @@ struct Mode {
   static constexpr int kPad = 16 / (int)sizeof(E);  // 16-byte row pad
 };
 
+// The depthwise 7x7 (stride 1, pad 3) of one channel ``c`` over a run of
+// ``n`` consecutive pixels of the flattened [B*H*W, C] plane, from pixel
+// ``start`` on, walked in order with the 7x7 input window in registers:
+// along an image row the window slides one column, so a pixel costs 7
+// loads, not 49. ``visit(i, win)`` is called for each pixel start + i below
+// ``total`` with win[dy][dx] = x[y + dy - 3, x + dx - 3] (0 outside the
+// image: the halo by bounds checks), ``skip(i)`` for each pixel past it.
+// Kernel A, K5's sibling K7 (dwconv.cu) and K8 (dwconv_wgrad.cu) share it.
+template <typename T, typename Visit, typename Skip>
+__device__ __forceinline__ void dw7_walk(const T* x, int H, int W, int C,
+                                         int c, int start, int n, int total,
+                                         Visit visit, Skip skip) {
+  const int HW = H * W;
+  int b = start / HW, y = (start - b * HW) / W;
+  int xq = start - b * HW - y * W;
+  float win[7][7];
+  bool slide = false;  // window holds the previous pixel of this row
+  for (int i = 0; i < n; ++i) {
+    if (start + i < total) {
+      const T* xb = x + (size_t)b * HW * C + c;
+      auto ld = [&](int yy, int xx) -> float {
+        return (yy < 0 || yy >= H || xx < 0 || xx >= W)
+                   ? 0.0f
+                   : to_f32(xb[(size_t)(yy * W + xx) * C]);
+      };
+      if (slide) {
+#pragma unroll
+        for (int dy = 0; dy < 7; ++dy) {
+#pragma unroll
+          for (int dx = 0; dx < 6; ++dx) win[dy][dx] = win[dy][dx + 1];
+          win[dy][6] = ld(y + dy - 3, xq + 3);
+        }
+      } else {
+#pragma unroll
+        for (int dy = 0; dy < 7; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 7; ++dx)
+            win[dy][dx] = ld(y + dy - 3, xq + dx - 3);
+      }
+      visit(i, win);
+    } else {
+      skip(i);
+    }
+    // next pixel
+    slide = xq + 1 < W;
+    if (++xq == W) {
+      xq = 0;
+      if (++y == H) {
+        y = 0;
+        ++b;
+      }
+    }
+  }
+}
+
+// bias + the 49 taps of one window, summed by columns (the order kernel A
+// has always used: its readings do not move with the sharing).
+__device__ __forceinline__ float dw7_dot(const float (&win)[7][7],
+                                         const float (&wk)[49], float bias) {
+  float d = bias;
+#pragma unroll
+  for (int dx = 0; dx < 7; ++dx) {
+    float vs = 0.0f;
+#pragma unroll
+    for (int dy = 0; dy < 7; ++dy) vs += win[dy][dx] * wk[dy * 7 + dx];
+    d += vs;
+  }
+  return d;
+}
+
 template <bool INT8>
 __host__ __device__ inline size_t block_smem_bytes(int C) {
   using M = Mode<INT8>;
@@ -153,12 +223,11 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned char* w2 = static_cast<const unsigned char*>(p.w2);
 
   // 1a. depthwise 7x7 + bias into the (f32) accumulator buffer. A thread
-  // owns one channel and a run of the CTA's rows, walked in order with the
-  // 7x7 input window and the 49 taps in registers: along an image row the
-  // window slides one column, so a pixel costs 7 loads, not 49.
-  // Neighbouring threads read neighbouring channels (coalesced). Below 256
-  // channels the rows are split into segs runs so more threads work.
-  // Without DW (K5) the rows of x are the LayerNorm input as they are.
+  // owns one channel and a run of the CTA's rows (dw7_walk: the 7x7 window
+  // and the 49 taps in registers). Neighbouring threads read neighbouring
+  // channels (coalesced). Below 256 channels the rows are split into segs
+  // runs so more threads work. Without DW (K5) the rows of x are the
+  // LayerNorm input as they are.
   if constexpr (!DW) {
     for (int idx = tid; idx < kTM * C; idx += kThreads) {
       const int r = idx / C, c = idx - r * C, row = row0 + r;
@@ -169,58 +238,16 @@ __global__ void __launch_bounds__(kThreads)
     const int seg_rows = kTM / segs;
     for (int t = tid; t < C * segs; t += kThreads) {
       const int c = t % C, r0 = (t / C) * seg_rows;
-      const int start = row0 + r0;
-      int b = start / HW, y = (start - b * HW) / p.W;
-      int xq = start - b * HW - y * p.W;
       float wk[49];
 #pragma unroll
       for (int i = 0; i < 49; ++i) wk[i] = p.dwk[i * C + c];
       const float bias = p.dwb[c];
-      float win[7][7];
-      bool slide = false;  // window holds the previous pixel of this row
-      for (int r = r0; r < r0 + seg_rows; ++r) {
-        float d = 0.0f;
-        if (row0 + r < total) {
-          const T* xb = x + (size_t)b * HW * C + c;
-          auto ld = [&](int yy, int xx) -> float {
-            return (yy < 0 || yy >= p.H || xx < 0 || xx >= p.W)
-                       ? 0.0f
-                       : to_f32(xb[(size_t)(yy * p.W + xx) * C]);
-          };
-          if (slide) {
-#pragma unroll
-            for (int dy = 0; dy < 7; ++dy) {
-#pragma unroll
-              for (int dx = 0; dx < 6; ++dx) win[dy][dx] = win[dy][dx + 1];
-              win[dy][6] = ld(y + dy - 3, xq + 3);
-            }
-          } else {
-#pragma unroll
-            for (int dy = 0; dy < 7; ++dy)
-#pragma unroll
-              for (int dx = 0; dx < 7; ++dx)
-                win[dy][dx] = ld(y + dy - 3, xq + dx - 3);
-          }
-          d = bias;
-#pragma unroll
-          for (int dx = 0; dx < 7; ++dx) {
-            float vs = 0.0f;
-#pragma unroll
-            for (int dy = 0; dy < 7; ++dy) vs += win[dy][dx] * wk[dy * 7 + dx];
-            d += vs;
-          }
-        }
-        accf[r * as + c] = d;
-        // next pixel
-        slide = xq + 1 < p.W;
-        if (++xq == p.W) {
-          xq = 0;
-          if (++y == p.H) {
-            y = 0;
-            ++b;
-          }
-        }
-      }
+      dw7_walk(
+          x, p.H, p.W, C, c, row0 + r0, seg_rows, total,
+          [&](int i, const float(&win)[7][7]) {
+            accf[(r0 + i) * as + c] = dw7_dot(win, wk, bias);
+          },
+          [&](int i) { accf[(r0 + i) * as + c] = 0.0f; });
     }
   }
   __syncthreads();

@@ -13,23 +13,34 @@ halo with bounds checks). Two GEMM modes, as on the TPU:
   the int8 weights (:func:`quantize_block_weights_folded`) and the kernel
   quantizes with one multiply, ``round(clip(x * 127/amax, +-127))``.
 
-The TPU's dynamic per-row int8 mode is not ported (ROADMAP Queue 1):
-:func:`prepare_block` raises for ``int8=True`` without scales.
+The TPU's dynamic per-row int8 mode is not ported (ROADMAP Queue 1
+item a): :func:`prepare_block` raises for ``int8=True`` without scales.
 
 Weights are prepared once (:func:`prepare_block`), in the layout the kernel
 reads: ``[out, in]`` GEMM operands. :func:`fused_block` launches the CUDA
 kernel (ops/cuda/fused_block.cu) for a CUDA tensor and runs
 :func:`fused_block_plain` for a CPU tensor.
+
+For training (``--fused_whole_blocks``), :func:`fused_block_ad` is the
+port of the JAX package's ``fused_block_ad``: kernel A in bf16 mode as the
+forward, on weights prepared from the current parameters at every call;
+the backward recomputes :func:`block_body_plain` (the JAX package's
+``_block_body_xla``) under autograd, so nothing wider than the block input
+is saved. In that recompute the f32 depthwise conv runs through
+``dwconv7_ad`` (ops/dwconv_bwd.py), whose weight gradient is K8: cuDNN's
+f32 grouped weight gradient took most of the step.
 """
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda as _cuda
+from .dwconv_bwd import dwconv7_ad
 
 __all__ = ["quantize_block_weights", "quantize_block_weights_folded",
            "prepare_block", "fused_block", "fused_block_plain",
-           "block_residual_plain"]
+           "block_residual_plain", "block_body_plain", "fused_block_ad",
+           "FusedBlock"]
 
 K = 7
 PAD = 3
@@ -88,7 +99,8 @@ def prepare_block(dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,
         if act_scales is None:
             raise ValueError(
                 "int8 without calibrated act_scales is the dynamic per-row "
-                "mode, which the port does not carry (ROADMAP Queue 1)")
+                "mode, which the port does not carry (ROADMAP Queue 1 "
+                "item a)")
         w1q, s1, i1 = quantize_block_weights_folded(
             pw1_weight.detach().t(), act_scales[0])
         w2q, s2, i2 = quantize_block_weights_folded(
@@ -181,3 +193,70 @@ def fused_block(x, pb, eps: float = 1e-6):
     _cuda.check(code, "fused_block")
     _cuda.count_launch("fused_block", x.shape[-1])
     return out
+
+
+def block_body_plain(x, dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,
+                     pw1_bias, pw2_weight, pw2_bias, layer_scale,
+                     eps: float = 1e-6):
+    """The whole block in PyTorch ops, differentiable, as the JAX package's
+    ``_block_body_xla``: the depthwise conv and the LayerNorm in f32, the
+    two GEMMs on bf16 operands (f32 sums, the result rounded to bf16),
+    tanh-GELU, the output in ``x.dtype``. Torch-layout parameters
+    (``dw_weight`` [C, 1, 7, 7], ``pw1_weight`` [4C, C], ``pw2_weight``
+    [C, 4C], ``layer_scale`` [C]). The depthwise conv is ``dwconv7_ad``:
+    its weight gradient is K8 for a CUDA tensor, the plain tap sums for a
+    CPU tensor."""
+    bf = torch.bfloat16
+    x32 = x.float()
+    c = x.shape[-1]
+    d = dwconv7_ad(x32, dw_weight.float(), dw_bias.float(), torch.float32)
+    mu = d.mean(dim=-1, keepdim=True)
+    var = (d - mu).square().mean(dim=-1, keepdim=True)
+    n = (d - mu) * torch.rsqrt(var + eps) * ln_weight.float() \
+        + ln_bias.float()
+    h = (n.to(bf) @ pw1_weight.to(bf).t()).float() + pw1_bias.float()
+    a = F.gelu(h, approximate="tanh")
+    y = (a.to(bf) @ pw2_weight.to(bf).t()).float() + pw2_bias.float()
+    return (x32 + y * layer_scale.float().reshape(c)).to(x.dtype)
+
+
+class FusedBlock(torch.autograd.Function):
+    """Kernel A forward (bf16 GEMMs), backward by recomputing
+    :func:`block_body_plain` with autocast off, its depthwise conv through
+    ``dwconv7_ad`` (the K8 weight gradient). Saves only ``x`` and the
+    parameters."""
+
+    @staticmethod
+    def forward(ctx, x, dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,
+                pw1_bias, pw2_weight, pw2_bias, layer_scale, eps):
+        params = (dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,
+                  pw1_bias, pw2_weight, pw2_bias, layer_scale)
+        with torch.autocast(x.device.type, enabled=False):
+            out = fused_block(x.contiguous(), prepare_block(*params), eps)
+        ctx.save_for_backward(x, *params)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:10]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad(), \
+                torch.autocast(g.device.type, enabled=False):
+            out = block_body_plain(*ins, ctx.eps)
+            wanted = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(out, wanted, g)
+                       if wanted else ())
+        return tuple(next(got) if n else None for n in need) + (None,)
+
+
+def fused_block_ad(x, dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,
+                   pw1_bias, pw2_weight, pw2_bias, layer_scale,
+                   eps: float = 1e-6):
+    """Differentiable whole ConvNeXt block on a compact NHWC plane ``x``
+    [B, H, W, C] (f32 or bf16; the output in ``x.dtype``). CUDA tensor:
+    kernel A forward; CPU tensor: its plain version."""
+    return FusedBlock.apply(x, dw_weight, dw_bias, ln_weight, ln_bias,
+                            pw1_weight, pw1_bias, pw2_weight, pw2_bias,
+                            layer_scale, eps)

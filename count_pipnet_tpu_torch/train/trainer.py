@@ -17,7 +17,10 @@ Port of count_pipnet_tpu/train/trainer.py. Phase structure:
 
 A phase's trainable groups become ``requires_grad`` (optim.set_trainable),
 so autograd computes no backward for what is frozen. ``--dtype bfloat16``
-runs the forward under ``torch.autocast`` with f32 parameters.
+runs the forward under ``torch.autocast`` with f32 parameters. A loader
+that carries a ``device_augment_cfg`` (``--device_augment``) yields
+single-view batches; both views are made on the device
+(data/device_augment.py) from a generator of their own.
 """
 
 import os
@@ -27,6 +30,7 @@ from typing import Dict, Optional
 import torch
 
 from ..config import save_args
+from ..data.device_augment import make_device_twoview_augment
 from ..models.pipnet import get_count_network
 from ..utils.checkpoint import (CheckpointManager, find_shared_backbone,
                                 graft_state_dict, load_backbone_only)
@@ -58,11 +62,6 @@ def check_ported(args):
         (g("model", "pipnet") != "count_pipnet",
          f"--model {g('model', 'pipnet')} (only count_pipnet is ported; "
          "PIP-Net is ROADMAP Queue 1 item 7)"),
-        (g("device_augment") or g("device_geometric"),
-         "--device_augment / --device_geometric (ROADMAP Queue 1 item 4)"),
-        (g("fused_dwconv"), "--fused_dwconv (ROADMAP Queue 2 item 8)"),
-        (g("fused_whole_blocks"),
-         "--fused_whole_blocks (ROADMAP Queue 2 item 5)"),
         (g("mesh_shape", -1) > 1,
          "--mesh_shape > 1 (multi-GPU is ROADMAP Queue 1 item 5)"),
         (g("interpret"), "--interpret (ROADMAP Queue 1 item 8)"),
@@ -98,6 +97,10 @@ class Trainer:
         self._classifier_init()
         self.model.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(args.seed)
+        # the views' draws: a stream apart from the model's (stochastic
+        # depth, Gumbel noise), so the two are not correlated
+        self.aug_generator = torch.Generator(self.device).manual_seed(
+            args.seed + 1)
         self.tau = 1.0
         self.labels = label_params(
             self.model, args.net,
@@ -130,7 +133,13 @@ class Trainer:
     def probe_wshape(self, loader) -> int:
         """One forward to record the latent grid size
         (reference main.py:211-218)."""
-        xs1 = self.to_device(next(iter(loader))[0][:1])
+        xs1 = next(iter(loader))[0][:1]
+        cfg = getattr(loader, "device_augment_cfg", None)
+        if cfg is not None:  # single-view uint8 batches: make a view
+            gen = torch.Generator(self.device).manual_seed(self.args.seed)
+            xs1, _ = make_device_twoview_augment(cfg)(
+                gen, torch.as_tensor(xs1, device=self.device))
+        xs1 = self.to_device(xs1)
         with autocast_for(self.device, self.dtype):
             proto, _, _ = self.model(xs1, generator=self.generator)
         self.args.wshape = proto.shape[2]
@@ -204,18 +213,27 @@ class Trainer:
         set_trainable(self.model, self.labels, masks)
         if hasattr(loader, "set_epoch"):
             loader.set_epoch(epoch)
+        cfg = getattr(loader, "device_augment_cfg", None)
+        augment = (make_device_twoview_augment(cfg) if cfg is not None
+                   else None)
         iters = len(loader)
         totals = {k: torch.zeros((), device=self.device) for k in _METRICS}
         lrs_net, lrs_class = [], []
         n = 0
         t0 = time.time()
-        for i, (xs1, xs2, ys) in enumerate(loader):
+        for i, host_batch in enumerate(loader):
             sched = self.sched(i, iters, epoch, pretrain=pretrain,
                                finetune=finetune, net_sched=net_sched,
                                cls_sched=cls_sched, bb_warmup=bb_warmup,
                                weights=weights)
-            batch = (self.to_device(xs1), self.to_device(xs2),
-                     self.to_device(ys, torch.int64))
+            if augment is not None:
+                xs, ys = host_batch  # uint8 single views
+                v1, v2 = augment(self.aug_generator,
+                                 torch.as_tensor(xs, device=self.device))
+            else:
+                xs1, xs2, ys = host_batch
+                v1, v2 = self.to_device(xs1), self.to_device(xs2)
+            batch = (v1, v2, self.to_device(ys, torch.int64))
             metrics = train_step(
                 self.model, self.optimizer, batch, sched,
                 enforce_weight_sparsity=getattr(

@@ -1,9 +1,11 @@
 """The port's command line end to end on the CPU (``--disable_cuda``): the
 verify recipe with ``--fused_blocks`` on a generated shapes dataset writes
 the 15-column CSV and the checkpoint roles with their sidecars, and
-``--resume_training`` continues the run; without a CUDA device and without
-``--disable_cuda`` it exits non-zero; its flags and defaults are the JAX
-package's; flags whose path is not ported raise."""
+``--resume_training`` continues the run; the same recipe on the
+whole-block route with the device augmentation, and on the depthwise +
+fused-MLP route; without a CUDA device and without ``--disable_cuda`` it
+exits non-zero; its flags and defaults are the JAX package's; flags whose
+path is not ported raise."""
 
 import argparse
 import csv
@@ -42,16 +44,17 @@ def _run(args, cwd, **kw):
                           capture_output=True, text=True, timeout=300, **kw)
 
 
-def test_cli_trains_writes_artifacts_and_resumes(tmp_path):
+def _generate_shapes(cwd):
     gen = _run(["-m", "count_pipnet_tpu.data.generate_shapes",
                 "--output_dir", "./data/geometric_shapes/dataset",
                 "--img_size", "64", "--train_samples_per_class", "4",
-                "--test_samples_per_class", "2", "--seed", "0"], tmp_path)
+                "--test_samples_per_class", "2", "--seed", "0"], cwd)
     assert gen.returncode == 0, gen.stderr[-2000:]
-    cli = ["-m", "count_pipnet_tpu_torch.main", *RECIPE, "--disable_cuda"]
-    res = _run(cli + ["--epochs", "2"], tmp_path)
-    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
-    run = tmp_path / "runs" / "vfy"
+
+
+def _check_artifacts(run):
+    """The 15-column CSV of one pretrain and two main epochs, and the
+    checkpoint roles with their sidecars."""
     with open(run / "log_epoch_overview.csv") as f:
         rows = list(csv.reader(f))
     assert len(rows[0]) == 15 and rows[0][0] == "epoch"
@@ -66,12 +69,38 @@ def test_cli_trains_writes_artifacts_and_resumes(tmp_path):
     assert (run / "out.txt").is_file()
     assert (run / "metadata" / "args.txt").is_file()
 
+
+def test_cli_trains_writes_artifacts_and_resumes(tmp_path):
+    _generate_shapes(tmp_path)
+    cli = ["-m", "count_pipnet_tpu_torch.main", *RECIPE, "--disable_cuda"]
+    res = _run(cli + ["--epochs", "2"], tmp_path)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    run = tmp_path / "runs" / "vfy"
+    _check_artifacts(run)
+
     res = _run(cli + ["--epochs", "3", "--resume_training"], tmp_path)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert "Resuming from checkpoint" in res.stdout
     assert "Pretrain Epoch" not in res.stdout
     with open(run / "log_epoch_overview.csv") as f:
         assert [r[0] for r in csv.reader(f)][1:] == ["1", "1", "2", "3"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fused_whole_blocks", "--device_augment", "--device_geometric"],
+    ["--fused_dwconv", "--fused_blocks"],
+], ids=["whole_blocks_device_augment", "dwconv_fused_blocks"])
+def test_cli_new_routes_write_artifacts(tmp_path, flags):
+    """The recipe on the routes of the flagship configs: the CSV and the
+    checkpoint roles, and (with the device augmentation) the loader's
+    single-view batches went through the device augmentation."""
+    _generate_shapes(tmp_path)
+    recipe = [a for a in RECIPE if a != "--fused_blocks"]
+    res = _run(["-m", "count_pipnet_tpu_torch.main", *recipe, *flags,
+                "--disable_cuda", "--epochs", "2"], tmp_path)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "unsupported" not in res.stdout
+    _check_artifacts(tmp_path / "runs" / "vfy")
 
 
 def test_cli_needs_a_card_without_disable_cuda(tmp_path):
@@ -88,9 +117,6 @@ def test_parser_defaults_equal_the_jax_package():
 
 @pytest.mark.parametrize("flags,item", [
     ([], "Queue 1 item 7"),                     # --model pipnet (default)
-    (["--device_augment"], "Queue 1 item 4"),
-    (["--fused_dwconv"], "Queue 2 item 8"),
-    (["--fused_whole_blocks"], "Queue 2 item 5"),
     (["--mesh_shape", "4"], "Queue 1 item 5"),
     (["--interpret"], "Queue 1 item 8"),
     (["--intermediate_layer", "linear"], "Queue 1 item d"),

@@ -8,7 +8,8 @@ a six-step trajectory of the train step, and evaluation.
   the same parameters through the bridge, the same batches, the same
   injected Gumbel noise and stochastic-depth masks, across the pretrain
   masks, the finetune masks and the unfrozen main masks (with the
-  classifier projection), on the eager and the ``--fused_blocks`` routes.
+  classifier projection), on the eager, the ``--fused_blocks``, the
+  ``--fused_whole_blocks`` and the ``--fused_dwconv`` routes.
   Losses and final parameters within the stated tolerances; frozen
   parameters bit-unchanged.
 * ``train.eval.evaluate`` against the JAX ``evaluate`` on the same
@@ -83,11 +84,13 @@ def test_label_groups_match_label_params(use_mid_layers, num_stages):
     assert set(ours.values()) == want
 
 
-def _models(fused, activation="gumbel_softmax"):
+def _models(fused, activation="gumbel_softmax", **routes):
+    """The flax and the port's model on the same parameters; ``fused``
+    sets ``fused_mlp``, ``routes`` the other block-route flags."""
     jm = JCountPIPNet(
         num_classes=NC, num_prototypes=P, max_count=M,
         backbone=JFeatures(stage_settings=STAGES, stride_threshold=40,
-                           num_stages=NUM_STAGES, fused_mlp=fused),
+                           num_stages=NUM_STAGES, fused_mlp=fused, **routes),
         num_features=P, activation=activation)
     params = jax.device_get(jm.init(
         {"params": jax.random.PRNGKey(5), "gumbel": jax.random.PRNGKey(1)},
@@ -102,7 +105,7 @@ def _models(fused, activation="gumbel_softmax"):
     params = dict(params, backbone=bb, classification=clf)
     tm = CountPIPNet(num_classes=NC, num_prototypes=P, max_count=M,
                      backbone=ConvNeXtFeatures(STAGES, 40, NUM_STAGES,
-                                               fused_mlp=fused),
+                                               fused_mlp=fused, **routes),
                      num_features=P, activation=activation)
     tm.load_state_dict(from_jax_params(params))
     return jm, params, tm
@@ -153,7 +156,24 @@ def test_trajectory_matches_make_train_step(monkeypatch, fused):
     entry within 1 % of the largest move; fused, the difference's norm
     within 10 % of the move's norm (gradients that differ at 1e-3 make
     AdamW move the few entries whose gradient is nearly zero by +-lr)."""
-    jm, params, tm = _models(fused)
+    _check_trajectory(monkeypatch, fused, *_models(fused))
+
+
+@pytest.mark.parametrize("route", ["fused_whole_blocks", "fused_dwconv"])
+def test_trajectory_new_routes(monkeypatch, route):
+    """The same six steps on the whole-block route (kernel A's plain
+    version forward, the recompute backward; the tolerances of the fused
+    route: the JAX XLA body rounds its GEMM results to bf16) and on the
+    depthwise route (K7's plain version forward, PyTorch's conv backward,
+    the eager body: the eager tolerances)."""
+    flags = {"fused_whole_blocks": dict(fused_whole_block=True),
+             "fused_dwconv": dict(fused_dwconv=True)}[route]
+    _check_trajectory(monkeypatch, route == "fused_whole_blocks",
+                      *_models(False, **flags))
+
+
+def _check_trajectory(monkeypatch, fused, jm, params, tm):
+    """Six steps of both train steps; ``fused``: the loose tolerances."""
     noise, masks = _noise_and_masks(tm, 21)
     _patch(monkeypatch, noise, masks)
     labels_j = j_label_params(params, "convnext_tiny_26",
