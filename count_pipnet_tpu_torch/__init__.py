@@ -6,7 +6,7 @@ JAX package stays the reference it is tested against. File names mirror
 the JAX package's; the public interface keeps its NHWC layout
 ([B, H, W, 3] images in, [B, H, W, P] maps and [B, P] counts out).
 
-It covers the gumbel-hard Count-PIPNet serving path
+It covers the gumbel-hard and softmax Count-PIPNet serving paths
 (``models/serving.py``, ``serving/engine.py``) and training
 (``python -m count_pipnet_tpu_torch.main``, ``train/``), with the
 flagship configs' routes on the hand-written kernels (``--fused_blocks``,

@@ -1,5 +1,5 @@
 """Models of the port: ConvNeXt backbone, Count-PIPNet, the parameter
-bridge from the JAX package, and the serving forward."""
+bridge from the JAX package, and the serving forwards."""
 
 from .convnext import ConvNeXtFeatures, convnext_tiny_13_features, \
     convnext_tiny_26_features

@@ -9,6 +9,10 @@ convnext (:349), extended to the whole Count-PIPNet. Layouts:
     dense kernel  [in, out]              -> [out, in]
     layer_scale   [C]                    -> [C, 1, 1]
 
+The intermediate layer's leaves keep their names (``ramp``, ``weight``,
+``embed``: the JAX package already holds ``weight`` and ``embed`` as
+[out, in]); the bilinear layer's ``W``/``V`` are flax ``Dense`` kernels.
+
 Leaves may be numpy arrays, jax arrays or anything ``np.asarray`` takes;
 the result holds float32 CPU tensors. :func:`to_jax_params` is the inverse
 (state dict -> nested dict of float32 numpy arrays), and :func:`jax_path`
@@ -21,8 +25,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["backbone_from_jax_params", "from_jax_params", "to_jax_params",
-           "jax_path"]
+__all__ = ["backbone_from_jax_params", "intermediate_from_jax_params",
+           "from_jax_params", "to_jax_params", "jax_path"]
 
 _BLOCK = re.compile(r"features_(\d+)_block_(\d+)$")
 _STAGE = re.compile(r"features_(\d+)$")
@@ -70,11 +74,27 @@ def backbone_from_jax_params(params) -> dict:
     return sd
 
 
+def intermediate_from_jax_params(params) -> dict:
+    """An intermediate layer's flax params -> the state dict of its module
+    in models/intermediates.py (no prefix; empty for onehot/identity)."""
+    sd = {}
+    for name, v in params.items():
+        if isinstance(v, dict):  # bilinear W / V: flax Dense [in, out]
+            sd[f"{name}.weight"] = _t(v["kernel"], (1, 0))
+        else:
+            sd[name] = _t(v)
+    return sd
+
+
 def from_jax_params(params) -> dict:
     """Whole CountPIPNet flax params -> state dict of
-    models.pipnet.CountPIPNet (backbone, add-on conv, classifier)."""
+    models.pipnet.CountPIPNet (backbone, add-on conv, intermediate,
+    classifier)."""
     sd = {f"backbone.{k}": v
           for k, v in backbone_from_jax_params(params["backbone"]).items()}
+    sd.update({f"intermediate.{k}": v for k, v in
+               intermediate_from_jax_params(
+                   params.get("intermediate", {})).items()})
     add_on = params.get("add_on", {})
     if "conv1x1" in add_on:
         sd["add_on.conv1x1.weight"] = _oihw(add_on["conv1x1"]["kernel"])
@@ -115,6 +135,10 @@ def jax_path(key: str):
                 "scale" if parts[4] == "weight" else "bias")
     if parts[0] == "add_on":
         return ("add_on", "conv1x1", _LEAF[parts[2]])
+    if parts[0] == "intermediate":
+        if len(parts) == 3:  # bilinear W.weight / V.weight
+            return ("intermediate", parts[1], "kernel")
+        return ("intermediate", parts[1])
     if parts[0] == "classification":
         return ("classification", {"normalization_multiplier": "multiplier"}
                 .get(parts[1], parts[1]))

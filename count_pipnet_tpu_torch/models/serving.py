@@ -1,62 +1,141 @@
-"""Gumbel-hard Count-PIPNet serving forward.
+"""Count-PIPNet serving forwards: counts and logits without the
+[B, H, W, P] prototype maps.
 
-The composition bench.py:82-93 runs on the TPU, in PyTorch: the backbone
-with one kernel per ConvNeXt block (models/quantized.py), the gumbel-hard
-counts, round and clamp to [0, max_count], the modified one-hot encoding
-and ``relu(W)`` over the classes. It returns ``(clamped_counts [B, P],
-logits [B, K])`` and never builds the [B, H, W, P] prototype maps.
+Port of count_pipnet_tpu/models/serving.py:make_serving_fn and of the
+gumbel-hard composition that bench.py:82-93 runs on the TPU. Both return
+``(clamped_counts [B, P], logits [B, K])``: counts, round and clamp to
+[0, max_count], the intermediate layer and ``relu(W)`` over the classes.
 
-* ``num_features == 0`` (the headline configuration): the prototypes are
-  the backbone channels, and the last block runs fused with the head
-  (kernel C): the last feature plane is never stored.
-* ``num_features > 0``: every block runs kernel A, the add-on 1x1 conv is a
-  PyTorch op, and the head is kernel B.
-
-The softmax serving path (``make_serving_fn`` with the fused count head,
-kernel 9) is ROADMAP Queue 2 item 9.
+* :func:`make_serving_fn`, the deterministic (softmax) path: a backbone
+  (the module itself, or the int8 ``quantize`` or K5 ``fused_mlp``
+  backbones of models/quantized.py), then K9 (ops/fused_head.py): the
+  add-on 1x1 conv, the per-patch softmax and the spatial sum in one
+  kernel; any of the five intermediates.
+* :func:`make_gumbel_serving_fn`, the gumbel-hard path: one kernel per
+  ConvNeXt block (models/quantized.py: fused_block_convnext_apply, int8
+  static or dynamic, optionally K10 downsamples), then the gumbel-hard
+  counts and the one-hot encoding. With ``num_features == 0`` (the headline
+  configuration) the prototypes are the backbone channels and the last
+  block runs fused with the head (kernel C), so the last feature plane is
+  never stored; with ``num_features > 0`` every block runs kernel A, the
+  add-on 1x1 conv is a PyTorch op and the head is kernel B.
 """
 
 import itertools
 
 import torch
 
+from ..ops.fused_head import fused_count_head
 from ..ops.gumbel_head import gumbel_hard_counts
 from ..ops.ste import create_modified_encoding
-from .quantized import fused_block_convnext_apply, prepare_fused_blocks
+from .quantized import (fused_block_convnext_apply, fused_convnext_apply,
+                        prepare_fused_blocks, prepare_fused_mlp,
+                        quant_convnext_apply, quantize_convnext_params)
 
-__all__ = ["make_gumbel_serving_fn", "with_seed_counter"]
+__all__ = ["make_serving_fn", "make_gumbel_serving_fn", "with_seed_counter"]
+
+
+def _place(model, state_dict, device):
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    device = torch.device(device)
+    return model.to(device).eval(), device
+
+
+def make_serving_fn(model, state_dict=None, device="cuda", *,
+                    quantize: bool = False, fused_mlp: bool = False,
+                    dtype=torch.bfloat16):
+    """Build ``infer(x) -> (clamped_counts, logits)`` for a softmax
+    :class:`models.pipnet.CountPIPNet` (the JAX package's
+    ``make_serving_fn``).
+
+    The backbone is the module's own f32 forward, or with ``quantize`` its
+    int8 pointwise GEMMs (``quant_convnext_apply``), or with ``fused_mlp``
+    its block bodies through K5 (``fused_convnext_apply``); the last two
+    keep their planes in ``dtype``. The counts are K9 with the add-on's 1x1
+    conv, or with the identity and a zero bias at ``num_features=0``.
+    ``state_dict`` (optional) is loaded into ``model`` first; all weights
+    are prepared once, here. ``x`` is [B, H, W, 3] (numpy or tensor); the
+    outputs are tensors on ``device``.
+    """
+    if model.activation != "softmax":
+        raise ValueError(
+            "serving fast path requires activation='softmax' (gumbel "
+            "inference is stochastic by design; use make_gumbel_serving_fn "
+            "or the standard forward)")
+    model, device = _place(model, state_dict, device)
+    backbone = model.backbone
+    if quantize:
+        qparams = quantize_convnext_params(backbone)
+
+        def features(x):
+            return quant_convnext_apply(backbone, qparams, x, dtype=dtype)
+    elif fused_mlp:
+        mlp = prepare_fused_mlp(backbone)
+
+        def features(x):
+            return fused_convnext_apply(backbone, x, dtype=dtype,
+                                        prepared=mlp)
+    else:
+        def features(x):
+            return backbone(x)
+    conv = model.add_on.conv1x1
+    if conv is not None:
+        w = conv.weight.detach().reshape(conv.out_channels, -1).float()
+        b = conv.bias.detach().float()
+    else:
+        p = backbone.out_channels
+        w = torch.eye(p, device=device)
+        b = torch.zeros(p, device=device)
+    w, b = w.contiguous(), b.contiguous()
+    clf = model.classification
+    w_t = torch.relu(clf.weight.detach()).t().contiguous()   # [D, K]
+    bias = None if clf.bias is None else clf.bias.detach()
+    max_count = float(model.max_count)
+
+    @torch.inference_mode()
+    def infer(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        counts = fused_count_head(features(x), w, b)
+        clamped = torch.clamp(torch.round(counts), 0.0, max_count)
+        out = model.intermediate(clamped) @ w_t
+        if bias is not None:
+            out = out + bias
+        return clamped, out
+
+    return infer
 
 
 def make_gumbel_serving_fn(model, state_dict=None, act_scales=None,
                            device="cuda", *, dtype=torch.bfloat16,
-                           int8_min_dim=None):
+                           int8_min_dim=None, int8_downsample=False):
     """Build ``infer(x, seed, noise=None) -> (clamped_counts, logits)`` for a
     gumbel-activation :class:`models.pipnet.CountPIPNet`.
 
-    ``state_dict`` (optional) is loaded into ``model`` first; ``act_scales``
-    from :func:`models.quantized.calibrate_act_scales` switch the blocks of
-    width >= ``int8_min_dim`` (default 96) to int8. Kernel weights are
-    prepared once, here. ``x`` is [B, H, W, 3] (numpy or tensor); the
-    outputs are tensors on ``device``. ``noise`` (optional, [B, H', W', P])
-    replaces the Gumbel draw from ``seed`` (parity checks).
+    ``state_dict`` (optional) is loaded into ``model`` first. The blocks of
+    width >= ``int8_min_dim`` run int8: with static scales when
+    ``act_scales`` (from :func:`models.quantized.calibrate_act_scales`) are
+    given (default width 96), else with dynamic per-row scales (default
+    384). ``int8_downsample`` runs the wide stride-1 downsamples through
+    K10. Kernel weights are prepared once, here. ``x`` is [B, H, W, 3]
+    (numpy or tensor); the outputs are tensors on ``device``. ``noise``
+    (optional, [B, H', W', P]) replaces the Gumbel draw from ``seed``
+    (parity checks).
     """
     if model.activation != "gumbel_softmax":
         raise ValueError("make_gumbel_serving_fn needs the gumbel_softmax "
-                         "activation; the softmax serving path is not "
-                         "ported yet")
+                         "activation; the softmax path is make_serving_fn")
     if model.intermediate_type != "onehot":
         raise ValueError("the serving path composes the one-hot encoding; "
                          f"got intermediate {model.intermediate_type!r}")
-    if state_dict is not None:
-        model.load_state_dict(state_dict)
-    device = torch.device(device)
-    model = model.to(device).eval()
+    model, device = _place(model, state_dict, device)
     if act_scales is not None:
         act_scales = {k: tuple(torch.as_tensor(t, device=device)
                                for t in v) for k, v in act_scales.items()}
     fused_head = model.num_features == 0
     prepared = prepare_fused_blocks(model.backbone, act_scales, int8_min_dim,
-                                    fused_head=fused_head)
+                                    fused_head=fused_head,
+                                    int8_downsample=int8_downsample)
     clf = model.classification
     w_t = torch.relu(clf.weight.detach()).t().contiguous()   # [D, K]
     bias = None if clf.bias is None else clf.bias.detach()

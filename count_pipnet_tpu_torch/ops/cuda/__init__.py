@@ -29,16 +29,20 @@ __all__ = ["library", "check", "ptr", "stream_ptr", "launch_counts",
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
 SOURCES = ("fused_block.cu", "gumbel_head.cu", "fused_mlp.cu",
-           "fused_mlp_bwd.cu", "dwconv.cu", "dwconv_wgrad.cu")
+           "fused_mlp_bwd.cu", "dwconv.cu", "dwconv_wgrad.cu",
+           "fused_head.cu", "int8_gemm.cu")
 HEADERS = ("block.cuh", "common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Kernel launches, by wrapper name: each wrapper adds one where it launches
 # its kernel, and nowhere else.
+# Kernel A in its dynamic int8 mode counts as "fused_block_int8_dyn".
 launch_counts = {"fused_block": 0, "gumbel_hard_counts": 0,
                  "fused_block_gumbel_counts": 0, "fused_ln_mlp_residual": 0,
-                 "fused_mlp_bwd": 0, "dwconv7": 0, "dwconv7_wgrad": 0}
+                 "fused_mlp_bwd": 0, "dwconv7": 0, "dwconv7_wgrad": 0,
+                 "fused_count_head": 0, "int8_quant_gemm": 0,
+                 "fused_block_int8_dyn": 0}
 # The same launches by (wrapper name, channel width).
 launch_widths = {}
 
@@ -53,13 +57,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
-_BLOCK_ARGS = [_I, _I, _I, _I, _I, _I,            # x_bf16 int8 B H W C
+_BLOCK_ARGS = [_I, _I, _I, _I, _I, _I,            # x_bf16 mode B H W C
                _P, _P, _P, _P,                    # dwk dwb lns lnb
                _P, _P, _P, _P, _P, _P, _P, _P,    # w1 s1 b1 i1 w2 s2 b2 i2
                _P, _F]                            # g eps
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # x, out, x_bf16, int8, B, H, W, C, ..., stream
+    # x, out, x_bf16, mode, B, H, W, C, ..., stream
     "cpt_fused_block": [_P, _P] + _BLOCK_ARGS + [_P],
     # logits, x_bf16, noise, counts, B, HW, C, seed, stream
     "cpt_gumbel_hard_counts": [_P, _I, _P, _P, _I, _I, _I, _U64, _P],
@@ -82,6 +86,10 @@ _SIGNATURES = {
     "cpt_dwconv7": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, g, bf16, B, H, W, C, seg, chunks, part, out, stream
     "cpt_dwconv7_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # x, x_bf16, w, bias, part, counts, B, HW, C, P, stream
+    "cpt_fused_count_head": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_bf16, wq, ws, bias, out, out_bf16, M, K, N, stream
+    "cpt_int8_quant_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

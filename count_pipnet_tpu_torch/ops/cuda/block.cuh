@@ -14,13 +14,24 @@
 //
 //   1. A CTA owns TM patch rows. It computes dw7x7 for them (halo by bounds
 //      checks, f32 taps), then LayerNorm, and keeps the LN output in shared
-//      memory as the GEMM operand (bf16, or int8 with the static scale).
+//      memory as the GEMM operand (bf16, or int8 with the static scale or
+//      with a per-row scale over C).
 //   2. It walks the hidden dimension in chunks of HC: pw1 chunk -> bias ->
-//      GELU -> cast / static-quantize -> accumulate pw2 into a [TM, C]
-//      shared accumulator (int32 in the int8 mode: the static scales are per
+//      GELU -> cast / quantize -> accumulate pw2 into a [TM, C] shared
+//      accumulator (int32 in the int8 modes: the static scales are per
 //      hidden channel, so chunking is exact).
 //   3. Epilogue: dequantize, * gamma, + residual; store (A) or, with HEAD,
 //      the noisy argmax histogram of each row (C) - the plane is not stored.
+//
+// The dynamic int8 mode (Q = kQDyn, the TPU's _kernel_int8 and
+// _kernel_int8_pad, fused_block.py:250, :313) quantizes the GELU output
+// with one scale per row over all 4C hidden values, which chunk-wise
+// quantization cannot know before the last chunk. So step 2 runs twice:
+// pass 1 computes each pw1 chunk, its GELU and the running row abs-max
+// only; pass 2 recomputes each chunk (the same arithmetic, the same values),
+// quantizes it with the whole row's scale and accumulates pw2. The pw1
+// GEMM runs twice: 1.5 times the static mode's GEMM work. (A whole
+// [TM, 4C] GELU tile would be 393 KB in f32 at C = 768: it does not fit.)
 //
 // With DW = false the same kernel is K5 (fused_mlp.cu): step 1a loads the
 // rows of x (the depthwise output, computed outside) instead of convolving,
@@ -40,6 +51,10 @@ namespace cpt {
 constexpr int kTM = 32;        // patch rows per CTA
 constexpr int kHC = 128;       // hidden chunk
 constexpr int kThreads = 256;  // 8 warps
+
+// GEMM operand modes: bf16, int8 with calibrated static scales, int8 with
+// dynamic per-row scales.
+enum : int { kQBf16 = 0, kQStatic = 1, kQDyn = 2 };
 
 struct BlockParams {
   const void* x;    // [B*H*W, C] T
@@ -191,17 +206,20 @@ __device__ __forceinline__ float dw7_dot(const float (&win)[7][7],
   return d;
 }
 
-template <bool INT8>
+template <int Q>
 __host__ __device__ inline size_t block_smem_bytes(int C) {
-  using M = Mode<INT8>;
+  using M = Mode<Q != kQBf16>;
   return (size_t)kTM * (C + 8) * 4                       // accumulator
          + (size_t)kTM * (C + M::kPad) * sizeof(typename M::E)    // LN out
-         + (size_t)kTM * (kHC + M::kPad) * sizeof(typename M::E);  // hidden
+         + (size_t)kTM * (kHC + M::kPad) * sizeof(typename M::E)  // hidden
+         + (Q == kQDyn ? (size_t)3 * kTM * 4 : 0);  // row scales, abs-max
 }
 
-template <typename T, bool INT8, bool HEAD, bool DW = true, typename TR = T>
+template <typename T, int Q, bool HEAD, bool DW = true, typename TR = T>
 __global__ void __launch_bounds__(kThreads)
     fused_block_kernel(const BlockParams p) {
+  constexpr bool INT8 = Q != kQBf16;
+  constexpr bool DYN = Q == kQDyn;
   using M = Mode<INT8>;
   using E = typename M::E;
   using Acc = typename M::Acc;
@@ -218,6 +236,12 @@ __global__ void __launch_bounds__(kThreads)
   Acc* acc = reinterpret_cast<Acc*>(smem);
   E* xn = reinterpret_cast<E*>(smem + (size_t)kTM * as * 4);
   E* hb = xn + kTM * xs;
+  // DYN: per-row scales of the LN output (nsc) and of the GELU output
+  // (asc), and the GELU row abs-max as float bits (non-negative floats
+  // order as their int bits, so atomicMax takes the max in any order)
+  float* nsc = reinterpret_cast<float*>(hb + kTM * hs);
+  float* asc = nsc + kTM;
+  int* amax_bits = reinterpret_cast<int*>(asc + kTM);
   const T* x = static_cast<const T*>(p.x);
   const unsigned char* w1 = static_cast<const unsigned char*>(p.w1);
   const unsigned char* w2 = static_cast<const unsigned char*>(p.w2);
@@ -264,6 +288,24 @@ __global__ void __launch_bounds__(kThreads)
       v += t * t;
     }
     const float rs = rsqrtf(warp_sum(v) / C + p.eps);
+    if constexpr (DYN) {
+      // the row's LN output in place of its depthwise output, then its
+      // abs-max, then the row quantized with its own scale
+      float m = 0.0f;
+      for (int c = lane; c < C; c += 32) {
+        const float n = (d[c] - mu) * rs * p.lns[c] + p.lnb[c];
+        accf[r * as + c] = n;
+        m = fmaxf(m, fabsf(n));
+      }
+      const float sc = row_scale(warp_max(m));
+      for (int c = lane; c < C; c += 32)
+        xn[r * xs + c] = quant_row(d[c], sc);
+      if (lane == 0) {
+        nsc[r] = sc;
+        amax_bits[r] = 0;
+      }
+      continue;
+    }
     for (int c = lane; c < C; c += 32) {
       const float n = (d[c] - mu) * rs * p.lns[c] + p.lnb[c];
       if constexpr (INT8) {
@@ -277,82 +319,115 @@ __global__ void __launch_bounds__(kThreads)
   for (int idx = tid; idx < kTM * as; idx += kThreads) acc[idx] = Acc(0);
   __syncthreads();
 
-  // 2. hidden chunks: pw1 -> GELU -> pw2 accumulate
-  for (int j0 = 0; j0 < HD; j0 += kHC) {
-    {  // pw1 chunk [kTM, kHC]: warp -> m-tile (warp & 1), 4 n-tiles
-      const int mt = warp & 1, nb = (warp >> 1) * 4;
-      Acc c4[4][4];
+  // 2. hidden chunks: pw1 -> GELU -> pw2 accumulate (DYN: pass 1 only
+  // takes the GELU row abs-max; a thread sees rows g8 and g8 + 8 of its
+  // m-tile in every chunk)
+  constexpr int kPasses = DYN ? 2 : 1;
+  float gmax[2] = {0.0f, 0.0f};
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const bool scan = pass + 1 < kPasses;
+    if (DYN && !scan) {
+      // the row maxima of pass 1 -> the GELU rows' scales
+      gmax[0] = fmaxf(gmax[0], __shfl_xor_sync(0xffffffffu, gmax[0], 1));
+      gmax[0] = fmaxf(gmax[0], __shfl_xor_sync(0xffffffffu, gmax[0], 2));
+      gmax[1] = fmaxf(gmax[1], __shfl_xor_sync(0xffffffffu, gmax[1], 1));
+      gmax[1] = fmaxf(gmax[1], __shfl_xor_sync(0xffffffffu, gmax[1], 2));
+      if (tq == 0) {
+        const int r = (warp & 1) * 16 + g8;
+        atomicMax(amax_bits + r, __float_as_int(gmax[0]));
+        atomicMax(amax_bits + r + 8, __float_as_int(gmax[1]));
+      }
+      __syncthreads();
+      if (tid < kTM) asc[tid] = row_scale(__int_as_float(amax_bits[tid]));
+      __syncthreads();
+    }
+    for (int j0 = 0; j0 < HD; j0 += kHC) {
+      {  // pw1 chunk [kTM, kHC]: warp -> m-tile (warp & 1), 4 n-tiles
+        const int mt = warp & 1, nb = (warp >> 1) * 4;
+        Acc c4[4][4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+        for (int t = 0; t < 4; ++t)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) c4[t][e] = Acc(0);
+          for (int e = 0; e < 4; ++e) c4[t][e] = Acc(0);
 #pragma unroll 4
-      for (int k0 = 0; k0 < C; k0 += M::kK) {
-        uint32_t a[4];
-        load_frag_a(a,
-                    reinterpret_cast<const unsigned char*>(
-                        xn + (mt * 16) * xs + k0),
-                    xs * (int)sizeof(E), lane);
+        for (int k0 = 0; k0 < C; k0 += M::kK) {
+          uint32_t a[4];
+          load_frag_a(a,
+                      reinterpret_cast<const unsigned char*>(
+                          xn + (mt * 16) * xs + k0),
+                      xs * (int)sizeof(E), lane);
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          uint32_t bf[2];
-          const int n0 = j0 + (nb + t) * 8;
-          load_frag_b(bf, w1 + ((size_t)n0 * C + k0) * sizeof(E),
-                      C * (int)sizeof(E), lane);
-          mma(c4[t], a, bf, E());
+          for (int t = 0; t < 4; ++t) {
+            uint32_t bf[2];
+            const int n0 = j0 + (nb + t) * 8;
+            load_frag_b(bf, w1 + ((size_t)n0 * C + k0) * sizeof(E),
+                        C * (int)sizeof(E), lane);
+            mma(c4[t], a, bf, E());
+          }
         }
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = mt * 16 + g8 + (e >> 1) * 8;
+            const int jl = (nb + t) * 8 + tq * 2 + (e & 1);
+            const int j = j0 + jl;
+            float h;
+            if constexpr (DYN) {
+              h = (float)c4[t][e] * nsc[r] * p.s1[j] + p.b1[j];
+            } else if constexpr (INT8) {
+              h = (float)c4[t][e] * p.s1[j] + p.b1[j];
+            } else {
+              h = c4[t][e] + p.b1[j];
+            }
+            h = gelu_tanh(h);
+            if constexpr (DYN) {
+              if (scan) {
+                gmax[e >> 1] = fmaxf(gmax[e >> 1], fabsf(h));
+              } else {
+                hb[r * hs + jl] = quant_row(h, asc[r]);
+              }
+            } else if constexpr (INT8) {
+              hb[r * hs + jl] = quant_static(h * p.i2[j]);
+            } else {
+              hb[r * hs + jl] = __float2bfloat16_rn(h);
+            }
+          }
       }
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = mt * 16 + g8 + (e >> 1) * 8;
-          const int jl = (nb + t) * 8 + tq * 2 + (e & 1);
-          const int j = j0 + jl;
-          float h;
-          if constexpr (INT8) {
-            h = (float)c4[t][e] * p.s1[j] + p.b1[j];
-          } else {
-            h = c4[t][e] + p.b1[j];
-          }
-          h = gelu_tanh(h);
-          if constexpr (INT8) {
-            hb[r * hs + jl] = quant_static(h * p.i2[j]);
-          } else {
-            hb[r * hs + jl] = __float2bfloat16_rn(h);
-          }
-        }
-    }
-    __syncthreads();
-    // pw2 partial [kTM, C] += hidden chunk @ w2[:, j0:j0+kHC]
-    const int ntn = C / 8;
+      if (DYN && scan) continue;  // pass 1: no pw2, nothing shared written
+      __syncthreads();
+      // pw2 partial [kTM, C] += hidden chunk @ w2[:, j0:j0+kHC]
+      const int ntn = C / 8;
 #pragma unroll 2
-    for (int t = warp; t < 2 * ntn; t += kThreads / 32) {
-      const int mt = t & 1, n0 = (t >> 1) * 8;
-      Acc c4[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+      for (int t = warp; t < 2 * ntn; t += kThreads / 32) {
+        const int mt = t & 1, n0 = (t >> 1) * 8;
+        Acc c4[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
 #pragma unroll
-      for (int k0 = 0; k0 < kHC; k0 += M::kK) {
-        uint32_t a[4], bf[2];
-        load_frag_a(a,
-                    reinterpret_cast<const unsigned char*>(
-                        hb + (mt * 16) * hs + k0),
-                    hs * (int)sizeof(E), lane);
-        load_frag_b(bf, w2 + ((size_t)n0 * HD + j0 + k0) * sizeof(E),
-                    HD * (int)sizeof(E), lane);
-        mma(c4, a, bf, E());
+        for (int k0 = 0; k0 < kHC; k0 += M::kK) {
+          uint32_t a[4], bf[2];
+          load_frag_a(a,
+                      reinterpret_cast<const unsigned char*>(
+                          hb + (mt * 16) * hs + k0),
+                      hs * (int)sizeof(E), lane);
+          load_frag_b(bf, w2 + ((size_t)n0 * HD + j0 + k0) * sizeof(E),
+                      HD * (int)sizeof(E), lane);
+          mma(c4, a, bf, E());
+        }
+        Acc* dst = acc + (mt * 16 + g8) * as + n0 + tq * 2;
+        dst[0] += c4[0];
+        dst[1] += c4[1];
+        dst[8 * as] += c4[2];
+        dst[8 * as + 1] += c4[3];
       }
-      Acc* dst = acc + (mt * 16 + g8) * as + n0 + tq * 2;
-      dst[0] += c4[0];
-      dst[1] += c4[1];
-      dst[8 * as] += c4[2];
-      dst[8 * as + 1] += c4[3];
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // 3. epilogue
   auto branch = [&](int r, int c) -> float {
-    if constexpr (INT8) {
+    if constexpr (DYN) {
+      return (float)acc[r * as + c] * asc[r] * p.s2[c] + p.b2[c];
+    } else if constexpr (INT8) {
       return (float)acc[r * as + c] * p.s2[c] + p.b2[c];
     } else {
       return acc[r * as + c] + p.b2[c];
@@ -382,15 +457,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Host side: pick the instantiation and launch on ``stream``.
+// Host side: pick the instantiation and launch on ``stream``. ``mode`` is
+// kQBf16, kQStatic or kQDyn; the head (HEAD, kernel C) carries the first
+// two, as the TPU's fused head does.
 template <bool HEAD>
 inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
-                                      int int8, cudaStream_t stream) {
-  if (p.C % 32 != 0) return cudaErrorInvalidValue;
+                                      int mode, cudaStream_t stream) {
+  if (p.C % 32 != 0 || mode < kQBf16 || mode > (HEAD ? kQStatic : kQDyn))
+    return cudaErrorInvalidValue;
   const int total = p.B * p.H * p.W;
   const dim3 grid((total + kTM - 1) / kTM);
-  const size_t smem = int8 ? block_smem_bytes<true>(p.C)
-                           : block_smem_bytes<false>(p.C);
+  const size_t smem = mode == kQDyn      ? block_smem_bytes<kQDyn>(p.C)
+                      : mode == kQStatic ? block_smem_bytes<kQStatic>(p.C)
+                                         : block_smem_bytes<kQBf16>(p.C);
   auto go = [&](auto kernel) -> cudaError_t {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -398,12 +477,19 @@ inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
     kernel<<<grid, kThreads, smem, stream>>>(p);
     return cudaGetLastError();
   };
-  if (x_bf16) {
-    return int8 ? go(fused_block_kernel<__nv_bfloat16, true, HEAD>)
-                : go(fused_block_kernel<__nv_bfloat16, false, HEAD>);
+  using BF = __nv_bfloat16;
+  if constexpr (!HEAD) {
+    if (mode == kQDyn) {
+      return x_bf16 ? go(fused_block_kernel<BF, kQDyn, HEAD>)
+                    : go(fused_block_kernel<float, kQDyn, HEAD>);
+    }
   }
-  return int8 ? go(fused_block_kernel<float, true, HEAD>)
-              : go(fused_block_kernel<float, false, HEAD>);
+  if (x_bf16) {
+    return mode == kQStatic ? go(fused_block_kernel<BF, kQStatic, HEAD>)
+                            : go(fused_block_kernel<BF, kQBf16, HEAD>);
+  }
+  return mode == kQStatic ? go(fused_block_kernel<float, kQStatic, HEAD>)
+                          : go(fused_block_kernel<float, kQBf16, HEAD>);
 }
 
 inline BlockParams make_block_params(

@@ -1,11 +1,13 @@
 // Kernel A: one whole ConvNeXt block (see block.cuh for the design).
 // Replaces count_pipnet_tpu/ops/pallas/fused_block.py:fused_block_apply_padded
-// (:358) and :fused_block_apply (:499). Bound to Python with ctypes
-// (count_pipnet_tpu_torch/ops/fused_block.py).
+// (:358) and :fused_block_apply (:499), with the bf16, int8-static and
+// dynamic int8 bodies of both. Bound to Python with ctypes
+// (count_pipnet_tpu_torch/ops/fused_block.py). ``mode``: 0 bf16, 1 int8
+// with static scales, 2 int8 with dynamic per-row scales.
 #include "block.cuh"
 
 extern "C" int cpt_fused_block(
-    const void* x, void* out, int x_bf16, int int8, int B, int H, int W,
+    const void* x, void* out, int x_bf16, int mode, int B, int H, int W,
     int C, const float* dwk, const float* dwb, const float* lns,
     const float* lnb, const void* w1, const float* s1, const float* b1,
     const float* i1, const void* w2, const float* s2, const float* b2,
@@ -14,5 +16,5 @@ extern "C" int cpt_fused_block(
       x, out, B, H, W, C, dwk, dwb, lns, lnb, w1, s1, b1, i1, w2, s2, b2, i2,
       g, eps);
   return (int)cpt::launch_fused_block<false>(
-      p, x_bf16, int8, static_cast<cudaStream_t>(stream));
+      p, x_bf16, mode, static_cast<cudaStream_t>(stream));
 }

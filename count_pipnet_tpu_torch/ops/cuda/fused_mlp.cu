@@ -24,7 +24,7 @@ static cudaError_t launch_fused_mlp(const BlockParams& p, int x_bf16,
   if (p.C % 32 != 0) return cudaErrorInvalidValue;
   const int total = p.B * p.H * p.W;
   const dim3 grid((total + kTM - 1) / kTM);
-  const size_t smem = block_smem_bytes<false>(p.C);
+  const size_t smem = block_smem_bytes<kQBf16>(p.C);
   auto go = [&](auto kernel) -> cudaError_t {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -34,11 +34,11 @@ static cudaError_t launch_fused_mlp(const BlockParams& p, int x_bf16,
   };
   using BF = __nv_bfloat16;
   if (x_bf16) {
-    return res_bf16 ? go(fused_block_kernel<BF, false, false, false, BF>)
-                    : go(fused_block_kernel<BF, false, false, false, float>);
+    return res_bf16 ? go(fused_block_kernel<BF, kQBf16, false, false, BF>)
+                    : go(fused_block_kernel<BF, kQBf16, false, false, float>);
   }
-  return res_bf16 ? go(fused_block_kernel<float, false, false, false, BF>)
-                  : go(fused_block_kernel<float, false, false, false, float>);
+  return res_bf16 ? go(fused_block_kernel<float, kQBf16, false, false, BF>)
+                  : go(fused_block_kernel<float, kQBf16, false, false, float>);
 }
 
 }  // namespace cpt

@@ -6,15 +6,18 @@
 Port of count_pipnet_tpu/ops/pallas/fused_block.py (``fused_block_apply``
 and ``fused_block_apply_padded``; the TPU's padded-plane layout is not
 carried: the CUDA kernel reads compact NHWC planes and handles the 3-pixel
-halo with bounds checks). Two GEMM modes, as on the TPU:
+halo with bounds checks). Three GEMM modes, as on the TPU:
 
 * bf16: the LN and GELU outputs are cast to bf16, products accumulate in f32;
 * int8-static: calibrated per-channel activation maxima are folded into
   the int8 weights (:func:`quantize_block_weights_folded`) and the kernel
-  quantizes with one multiply, ``round(clip(x * 127/amax, +-127))``.
-
-The TPU's dynamic per-row int8 mode is not ported (ROADMAP Queue 1
-item a): :func:`prepare_block` raises for ``int8=True`` without scales.
+  quantizes with one multiply, ``round(clip(x * 127/amax, +-127))``;
+* int8-dynamic (``int8=True`` without ``act_scales``): per-output-channel
+  int8 weights (:func:`quantize_block_weights`) and, per row, the LN output
+  quantized over C and the GELU output over 4C with ``ops.int8_gemm.
+  quant_rows`` (the TPU's ``_quant_rows``). The kernel walks the hidden
+  dimension twice to know each row's GELU scale (ops/cuda/block.cuh); its
+  launches count as ``fused_block_int8_dyn``.
 
 Weights are prepared once (:func:`prepare_block`), in the layout the kernel
 reads: ``[out, in]`` GEMM operands. :func:`fused_block` launches the CUDA
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 
 from . import cuda as _cuda
 from .dwconv_bwd import dwconv7_ad
+from .int8_gemm import quant_rows
 
 __all__ = ["quantize_block_weights", "quantize_block_weights_folded",
            "prepare_block", "fused_block", "fused_block_plain",
@@ -82,25 +86,26 @@ def prepare_block(dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,
     (``dw_weight`` [C, 1, 7, 7], ``pw1_weight`` [4C, C], ``pw2_weight``
     [C, 4C], ``layer_scale`` [C, 1, 1] or [C]).
 
-    ``int8=True`` needs ``act_scales = (amax_ln [C], amax_gelu [4C])``.
-    Returns a dict of contiguous tensors on the parameters' device.
+    ``int8=True`` with ``act_scales = (amax_ln [C], amax_gelu [4C])`` is
+    the static mode, without them the dynamic per-row mode. Returns a dict
+    of contiguous tensors on the parameters' device.
     """
     f32 = lambda t: t.detach().to(torch.float32).reshape(-1).contiguous()
     c = dw_weight.shape[0]
     pb = {
-        "int8": bool(int8),
+        "int8": bool(int8), "dynamic": bool(int8) and act_scales is None,
         "dwk": dw_weight.detach().to(torch.float32).reshape(c, K * K)
         .t().contiguous(),                       # [49, C], tap dy * 7 + dx
         "dwb": f32(dw_bias), "lns": f32(ln_weight), "lnb": f32(ln_bias),
         "b1": f32(pw1_bias), "b2": f32(pw2_bias), "g": f32(layer_scale),
         "s1": None, "i1": None, "s2": None, "i2": None,
     }
-    if int8:
-        if act_scales is None:
-            raise ValueError(
-                "int8 without calibrated act_scales is the dynamic per-row "
-                "mode, which the port does not carry (ROADMAP Queue 1 "
-                "item a)")
+    if pb["dynamic"]:
+        w1q, s1 = quantize_block_weights(pw1_weight.detach().t())
+        w2q, s2 = quantize_block_weights(pw2_weight.detach().t())
+        pb.update(w1=w1q.t().contiguous(), s1=f32(s1),
+                  w2=w2q.t().contiguous(), s2=f32(s2))
+    elif int8:
         w1q, s1, i1 = quantize_block_weights_folded(
             pw1_weight.detach().t(), act_scales[0])
         w2q, s2, i2 = quantize_block_weights_folded(
@@ -127,7 +132,14 @@ def block_residual_plain(x, pb, eps: float = 1e-6):
     mu = d.mean(dim=-1, keepdim=True)
     var = (d - mu).square().mean(dim=-1, keepdim=True)
     n = (d - mu) * torch.rsqrt(var + eps) * pb["lns"] + pb["lnb"]
-    if pb["int8"]:
+    if pb["dynamic"]:
+        nq, nsc = quant_rows(n)
+        hid = (nq.double() @ pb["w1"].double().t()).float()
+        hid = hid * nsc * pb["s1"] + pb["b1"]
+        aq, asc = quant_rows(F.gelu(hid, approximate="tanh"))
+        y = (aq.double() @ pb["w2"].double().t()).float()
+        y = y * asc * pb["s2"] + pb["b2"]
+    elif pb["int8"]:
         nq = torch.round(torch.clamp(n * pb["i1"], -127.0, 127.0))
         hid = (nq.double() @ pb["w1"].double().t()).float()
         hid = hid * pb["s1"] + pb["b1"]
@@ -168,7 +180,8 @@ def block_args(x, pb):
     """The kernel-A argument list shared with kernel C (ops/gumbel_head)."""
     p = _cuda.ptr
     b, h, w, c = x.shape
-    return [int(x.dtype == torch.bfloat16), int(pb["int8"]), b, h, w, c,
+    mode = 2 if pb["dynamic"] else int(pb["int8"])  # block.cuh: kQ*
+    return [int(x.dtype == torch.bfloat16), mode, b, h, w, c,
             p(pb["dwk"]), p(pb["dwb"]), p(pb["lns"]), p(pb["lnb"]),
             p(pb["w1"]), p(pb["s1"]), p(pb["b1"]), p(pb["i1"]),
             p(pb["w2"]), p(pb["s2"]), p(pb["b2"]), p(pb["i2"]),
@@ -191,7 +204,8 @@ def fused_block(x, pb, eps: float = 1e-6):
         x.data_ptr(), out.data_ptr(), *block_args(x, pb), float(eps),
         _cuda.stream_ptr(x.device))
     _cuda.check(code, "fused_block")
-    _cuda.count_launch("fused_block", x.shape[-1])
+    _cuda.count_launch("fused_block_int8_dyn" if pb["dynamic"]
+                       else "fused_block", x.shape[-1])
     return out
 
 

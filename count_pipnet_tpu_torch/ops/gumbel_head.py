@@ -151,13 +151,17 @@ def fused_block_gumbel_counts(x, pb, seed: int = 0, noise=None,
                               eps: float = 1e-6):
     """Last ConvNeXt block + gumbel-hard head: NHWC ``x`` [B, H, W, C] and
     weights from :func:`ops.fused_block.prepare_block` -> [B, C] f32
-    counts. CUDA tensor: kernel C; CPU tensor: the plain version."""
+    counts. CUDA tensor: kernel C, which carries the bf16 and int8-static
+    modes as the TPU's fused head does; CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return fused_block_gumbel_counts_plain(x, pb, seed, noise, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_gumbel_counts: unsupported device "
                          f"{x.device}")
     check_block_inputs(x, pb)
+    if pb["dynamic"]:
+        raise ValueError("kernel C carries the bf16 and int8-static modes, "
+                         "not the dynamic per-row int8 mode")
     b, h, w, c = x.shape
     nz = _noise_arg(noise, b, h * w, c, x.device)
     counts = torch.zeros(b, c, dtype=torch.float32, device=x.device)

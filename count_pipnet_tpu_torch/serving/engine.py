@@ -16,8 +16,8 @@ must trade latency against the device's preference for large batches:
   ``max_inflight`` batches are outstanding.
 
 Works with any ``infer_fn(x) -> tensor | tuple | list | dict`` of tensors
-with a leading batch dimension, e.g. models.serving.with_seed_counter
-around make_gumbel_serving_fn.
+with a leading batch dimension, e.g. models.serving.make_serving_fn (the
+softmax path) as it is, or with_seed_counter around make_gumbel_serving_fn.
 """
 
 import queue

@@ -1,7 +1,8 @@
 """The port's ServingEngine (count_pipnet_tpu_torch/serving/engine.py) on
 the CPU: batching, the padding ladder, deadline flush, result routing and
 error propagation, mirroring tests/test_serving_engine.py, plus the
-engine around the gumbel-hard serving forward of a tiny model."""
+engine around the gumbel-hard and the softmax serving forwards of a tiny
+model."""
 
 import time
 
@@ -13,6 +14,7 @@ from count_pipnet_tpu_torch.models.convnext import ConvNeXtFeatures
 from count_pipnet_tpu_torch.models.pipnet import CountPIPNet
 from count_pipnet_tpu_torch.models.quantized import calibrate_act_scales
 from count_pipnet_tpu_torch.models.serving import (make_gumbel_serving_fn,
+                                                   make_serving_fn,
                                                    with_seed_counter)
 from count_pipnet_tpu_torch.serving import ServingEngine, autotune_batch_size
 
@@ -116,3 +118,26 @@ def test_engine_serves_gumbel_forward():
         np.testing.assert_array_equal(c, counts[i].numpy())
         np.testing.assert_allclose(lg, logits[i].numpy(), rtol=1e-6)
     assert (st["requests"], st["batches"], st["padded_slots"]) == (8, 1, 0)
+
+
+def test_engine_serves_softmax_forward():
+    """make_serving_fn is an infer_fn as it is: 5 single-image requests,
+    padded to a batch of 8, each answered with its row of the batched
+    deterministic forward (1e-6)."""
+    torch.manual_seed(1)
+    model = CountPIPNet(num_classes=6, num_prototypes=64,
+                        backbone=ConvNeXtFeatures(((32, 1), (64, 1)), 40,
+                                                  num_stages=3),
+                        activation="softmax")
+    infer = make_serving_fn(model, device="cpu", quantize=True)
+    x = np.random.default_rng(6).normal(size=(5, 32, 32, 3)) \
+        .astype(np.float32)
+    with ServingEngine(infer, (32, 32, 3), batch_sizes=(8,),
+                       max_wait_ms=250.0) as eng:
+        results = [f.result(timeout=60) for f in eng.submit_many(x)]
+    counts, logits = infer(x)
+    for i, (c, lg) in enumerate(results):
+        assert c.shape == (64,) and lg.shape == (6,)
+        np.testing.assert_allclose(c, counts[i].numpy(), rtol=1e-6)
+        np.testing.assert_allclose(lg, logits[i].numpy(), rtol=1e-6,
+                                   atol=1e-6)

@@ -37,7 +37,7 @@ def test_port_imports_without_jax():
 def test_cuda_sources_tracked_and_packaged():
     sources = sorted(p.relative_to(ROOT).as_posix()
                      for p in (PKG / "ops" / "cuda").glob("*.cu*"))
-    assert len(sources) == 8, sources
+    assert len(sources) == 10, sources
     if not (ROOT / ".git").exists():
         pytest.skip("not a git checkout")
     tracked = subprocess.run(

@@ -174,9 +174,11 @@ def test_factories():
 
     model, p = get_count_network(200, Args, max_count=3)
     assert p == 192 and model.classification.weight.shape == (200, 576)
-    for kind in ("linear", "linear_full", "bilinear", "identity"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_intermediate(kind, 4, 3)
+    for kind, dim in (("linear", 12), ("linear_full", 12), ("bilinear", 12),
+                      ("identity", 4)):
+        assert make_intermediate(kind, 4, 3).output_dim == dim
+    with pytest.raises(ValueError, match="Unknown intermediate"):
+        make_intermediate("cubic", 4, 3)
     Args.net = "resnet50"
     with pytest.raises(ValueError):
         get_count_network(200, Args)

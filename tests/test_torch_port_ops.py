@@ -188,6 +188,46 @@ def test_dispatch_and_validation():
         tfb.fused_block(x.to("meta"), pb)
     with pytest.raises(ValueError):
         tgh.gumbel_hard_counts(x.to("meta"))
-    with pytest.raises(ValueError, match="dynamic per-row"):
-        tfb.prepare_block(**{k: torch.from_numpy(v) for k, v in tp.items()},
-                          int8=True)
+    # int8 without act_scales is the dynamic per-row mode
+    pd = tfb.prepare_block(**{k: torch.from_numpy(v) for k, v in tp.items()},
+                           int8=True)
+    assert pd["int8"] and pd["dynamic"] and pd["i1"] is None
+    assert not pb["dynamic"] and not _prepared(tp, _amax(
+        x.numpy(), tp))["dynamic"]
+    assert torch.equal(tfb.fused_block(x, pd), tfb.fused_block_plain(x, pd))
+
+
+def test_quantize_block_weights_equals_jax():
+    """The dynamic mode's per-output-channel int8 weights: exactly the JAX
+    package's, an all-zero channel included."""
+    rng = np.random.default_rng(5)
+    k = rng.normal(size=(C, 4 * C)).astype(np.float32) * 0.05
+    k[:, 9] = 0.0
+    jq, js = jfb.quantize_block_weights(k)
+    tq, ts = tfb.quantize_block_weights(torch.from_numpy(k))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("hw", [(9, 9), (14, 13)], ids=["9x9", "14x13"])
+def test_fused_block_dynamic_plain_matches_jax(hw):
+    """The dynamic per-row int8 mode (``int8=True``, no act_scales)
+    against the Pallas bodies ``_kernel_int8`` (fused_block_apply, K2) and
+    ``_kernel_int8_pad`` (fused_block_apply_padded with in-kernel pad and
+    unpad, K1): the output within 2e-3 of its largest value (the same
+    int8 operands unless an f32 rounding flips one)."""
+    h, w = hw
+    tp, jp = _params(C, 7)
+    x4 = np.random.default_rng(1).normal(size=(2, h, w, C)) \
+        .astype(np.float32)
+    pb = tfb.prepare_block(**{k: torch.from_numpy(v) for k, v in tp.items()},
+                           int8=True)
+    got = tfb.fused_block(torch.from_numpy(x4), pb).numpy()
+    flat = jfb.fused_block_apply(
+        jnp.asarray(x4.reshape(2, h * w, C)), h, w, *jp, int8=True,
+        interpret=True)
+    padded = jfb.fused_block_apply_padded(
+        jnp.asarray(x4), h, w, *jp, int8=True, pad_in=True, unpad_out=True,
+        interpret=True)
+    for ref in (np.asarray(flat).reshape(2, h, w, C), np.asarray(padded)):
+        assert np.abs(got - ref).max() <= 2e-3 * np.abs(ref).max()
