@@ -12,9 +12,10 @@ and their LayerNorms stay PyTorch ops (the JAX package leaves them to XLA).
   static scales (:func:`calibrate_act_scales`, :152) or, without them, with
   dynamic per-row scales. ``int8_downsample`` runs every stride-1
   downsample of width >= ``int8_min_dim`` as a 2x2 im2col and K10
-  (ops/int8_gemm.py). Not carried from the TPU path: the padded-plane
-  layout (``padded_planes``, ``padded_max_dim``, ``inkernel_pad``: TPU
-  tiling only) and ``dw_bf16`` (ROADMAP Queue 1 item b).
+  (ops/int8_gemm.py). ``dw_bf16`` runs every kernel A launch with bf16
+  depthwise taps. Not carried from the TPU path: the padded-plane layout
+  (``padded_planes``, ``padded_max_dim``, ``inkernel_pad``: TPU tiling
+  only).
 * :func:`quant_convnext_apply` (:386) on :func:`quantize_convnext_params`
   (:57): the plain blocks with each pointwise GEMM through
   :func:`int8_rowwise_matmul` (:42), a library int8 product
@@ -182,6 +183,7 @@ def fused_block_convnext_apply(backbone, x, *,
                                dtype=torch.bfloat16,
                                int8_min_dim: Optional[int] = None,
                                int8_downsample: bool = False,
+                               dw_bf16: bool = False,
                                act_scales: Optional[Dict] = None,
                                gumbel_head: Optional[Dict] = None,
                                prepared: Optional[Dict] = None):
@@ -194,7 +196,9 @@ def fused_block_convnext_apply(backbone, x, *,
     ``num_features=0``). ``prepared``: from :func:`prepare_fused_blocks`
     (built here from ``act_scales``, ``int8_min_dim`` and
     ``int8_downsample`` when omitted); a downsample runs through K10 when
-    ``prepared`` holds its weights.
+    ``prepared`` holds its weights. ``dw_bf16``: every kernel A launch runs
+    its depthwise taps in bf16; kernel C, which has only f32 taps as on the
+    TPU, does not take it.
     """
     if prepared is None:
         prepared = prepare_fused_blocks(backbone, act_scales, int8_min_dim,
@@ -214,7 +218,7 @@ def fused_block_convnext_apply(backbone, x, *,
                 return fused_block_gumbel_counts(
                     h, prepared[scope], seed=gumbel_head.get("seed", 0),
                     noise=gumbel_head.get("noise"))
-            h = fused_block(h, prepared[scope])
+            h = fused_block(h, prepared[scope], dw_bf16=dw_bf16)
     return h
 
 

@@ -37,12 +37,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # Kernel launches, by wrapper name: each wrapper adds one where it launches
 # its kernel, and nowhere else.
-# Kernel A in its dynamic int8 mode counts as "fused_block_int8_dyn".
+# Kernel A in its dynamic int8 mode counts as "fused_block_int8_dyn", and
+# with bf16 depthwise taps as "fused_block_dwbf16" (bf16 and int8-static
+# GEMMs) or "fused_block_int8_dyn_dwbf16".
 launch_counts = {"fused_block": 0, "gumbel_hard_counts": 0,
                  "fused_block_gumbel_counts": 0, "fused_ln_mlp_residual": 0,
                  "fused_mlp_bwd": 0, "dwconv7": 0, "dwconv7_wgrad": 0,
                  "fused_count_head": 0, "int8_quant_gemm": 0,
-                 "fused_block_int8_dyn": 0}
+                 "fused_block_int8_dyn": 0, "fused_block_dwbf16": 0,
+                 "fused_block_int8_dyn_dwbf16": 0}
 # The same launches by (wrapper name, channel width).
 launch_widths = {}
 
@@ -63,8 +66,8 @@ _BLOCK_ARGS = [_I, _I, _I, _I, _I, _I,            # x_bf16 mode B H W C
                _P, _F]                            # g eps
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # x, out, x_bf16, mode, B, H, W, C, ..., stream
-    "cpt_fused_block": [_P, _P] + _BLOCK_ARGS + [_P],
+    # x, out, dw_bf16, x_bf16, mode, B, H, W, C, ..., stream
+    "cpt_fused_block": [_P, _P, _I] + _BLOCK_ARGS + [_P],
     # logits, x_bf16, noise, counts, B, HW, C, seed, stream
     "cpt_gumbel_hard_counts": [_P, _I, _P, _P, _I, _I, _I, _U64, _P],
     # x, x_bf16, int8, B, H, W, C, ..., noise, counts, seed, stream

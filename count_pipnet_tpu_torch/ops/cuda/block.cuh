@@ -13,9 +13,10 @@
 // activation never leave the SM:
 //
 //   1. A CTA owns TM patch rows. It computes dw7x7 for them (halo by bounds
-//      checks, f32 taps), then LayerNorm, and keeps the LN output in shared
-//      memory as the GEMM operand (bf16, or int8 with the static scale or
-//      with a per-row scale over C).
+//      checks; f32 taps, or with DWBF the TPU's bf16 taps, on channel pairs
+//      in bf16x2: dw7_dot), then LayerNorm, and keeps the LN output in
+//      shared memory as the GEMM operand (bf16, or int8 with the static
+//      scale or with a per-row scale over C).
 //   2. It walks the hidden dimension in chunks of HC: pw1 chunk -> bias ->
 //      GELU -> cast / quantize -> accumulate pw2 into a [TM, C] shared
 //      accumulator (int32 in the int8 modes: the static scales are per
@@ -143,23 +144,45 @@ struct Mode {
 // loads, not 49. ``visit(i, win)`` is called for each pixel start + i below
 // ``total`` with win[dy][dx] = x[y + dy - 3, x + dx - 3] (0 outside the
 // image: the halo by bounds checks), ``skip(i)`` for each pixel past it.
+// The window holds WT values: f32, or for kernel A's bf16 taps the channel
+// pair (c, c + 1) as one bf16x2 (load_tap).
 // Kernel A, K5's sibling K7 (dwconv.cu) and K8 (dwconv_wgrad.cu) share it.
-template <typename T, typename Visit, typename Skip>
+template <typename WT, typename T>
+__device__ __forceinline__ WT load_tap(const T* p) {
+  if constexpr (std::is_same_v<WT, float>) {
+    return to_f32(*p);
+  } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return *reinterpret_cast<const __nv_bfloat162*>(p);
+  } else {  // round to nearest even, as astype(bfloat16)
+    return __float22bfloat162_rn(*reinterpret_cast<const float2*>(p));
+  }
+}
+
+template <typename WT>
+__device__ __forceinline__ WT zero_tap() {
+  if constexpr (std::is_same_v<WT, float>) {
+    return 0.0f;
+  } else {
+    return __float2bfloat162_rn(0.0f);
+  }
+}
+
+template <typename WT = float, typename T, typename Visit, typename Skip>
 __device__ __forceinline__ void dw7_walk(const T* x, int H, int W, int C,
                                          int c, int start, int n, int total,
                                          Visit visit, Skip skip) {
   const int HW = H * W;
   int b = start / HW, y = (start - b * HW) / W;
   int xq = start - b * HW - y * W;
-  float win[7][7];
+  WT win[7][7];
   bool slide = false;  // window holds the previous pixel of this row
   for (int i = 0; i < n; ++i) {
     if (start + i < total) {
       const T* xb = x + (size_t)b * HW * C + c;
-      auto ld = [&](int yy, int xx) -> float {
+      auto ld = [&](int yy, int xx) -> WT {
         return (yy < 0 || yy >= H || xx < 0 || xx >= W)
-                   ? 0.0f
-                   : to_f32(xb[(size_t)(yy * W + xx) * C]);
+                   ? zero_tap<WT>()
+                   : load_tap<WT>(xb + (size_t)(yy * W + xx) * C);
       };
       if (slide) {
 #pragma unroll
@@ -206,6 +229,30 @@ __device__ __forceinline__ float dw7_dot(const float (&win)[7][7],
   return d;
 }
 
+// The same for a channel pair with bf16 taps, as the TPU kernels'
+// tap_dtype=bfloat16 computes it (count_pipnet_tpu/ops/pallas/
+// fused_block.py:_dwconv_flat, :_dwconv_pad): window and weights in bf16;
+// for each dx the 7 products, each rounded to bf16, summed in bf16 in dy
+// order; each per-dx sum then added in f32 to the bias, in dx order. The
+// packed __hmul2_rn / __hadd2_rn do both channels in one instruction,
+// round every step and are never contracted into an FMA (one rounding),
+// so the sums are the plain version's to the bit.
+__device__ __forceinline__ float2 dw7_dot(const __nv_bfloat162 (&win)[7][7],
+                                          const __nv_bfloat162 (&wk)[49],
+                                          float2 d) {
+#pragma unroll
+  for (int dx = 0; dx < 7; ++dx) {
+    __nv_bfloat162 vs = __hmul2_rn(win[0][dx], wk[dx]);
+#pragma unroll
+    for (int dy = 1; dy < 7; ++dy)
+      vs = __hadd2_rn(vs, __hmul2_rn(win[dy][dx], wk[dy * 7 + dx]));
+    const float2 f = __bfloat1622float2(vs);
+    d.x += f.x;
+    d.y += f.y;
+  }
+  return d;
+}
+
 template <int Q>
 __host__ __device__ inline size_t block_smem_bytes(int C) {
   using M = Mode<Q != kQBf16>;
@@ -215,7 +262,8 @@ __host__ __device__ inline size_t block_smem_bytes(int C) {
          + (Q == kQDyn ? (size_t)3 * kTM * 4 : 0);  // row scales, abs-max
 }
 
-template <typename T, int Q, bool HEAD, bool DW = true, typename TR = T>
+template <typename T, int Q, bool HEAD, bool DW = true, typename TR = T,
+          bool DWBF = false>
 __global__ void __launch_bounds__(kThreads)
     fused_block_kernel(const BlockParams p) {
   constexpr bool INT8 = Q != kQBf16;
@@ -247,15 +295,41 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned char* w2 = static_cast<const unsigned char*>(p.w2);
 
   // 1a. depthwise 7x7 + bias into the (f32) accumulator buffer. A thread
-  // owns one channel and a run of the CTA's rows (dw7_walk: the 7x7 window
-  // and the 49 taps in registers). Neighbouring threads read neighbouring
-  // channels (coalesced). Below 256 channels the rows are split into segs
-  // runs so more threads work. Without DW (K5) the rows of x are the
-  // LayerNorm input as they are.
+  // owns one channel (DWBF: a channel pair, in bf16x2) and a run of the
+  // CTA's rows (dw7_walk: the 7x7 window and the 49 taps in registers).
+  // Neighbouring threads read neighbouring channels (coalesced). Below 256
+  // channels (pairs) the rows are split into segs runs so more threads
+  // work. Without DW (K5) the rows of x are the LayerNorm input as they
+  // are. The f32 and bf16 tap branches stay apart: written as one loop
+  // over 1 or 2 channels a thread, the f32-tap instantiations rose from
+  // 127-128 to 130-162 registers and ran up to 1.4 times slower (H100).
   if constexpr (!DW) {
     for (int idx = tid; idx < kTM * C; idx += kThreads) {
       const int r = idx / C, c = idx - r * C, row = row0 + r;
       accf[r * as + c] = row < total ? to_f32(x[(size_t)row * C + c]) : 0.0f;
+    }
+  } else if constexpr (DWBF) {
+    const int C2 = C / 2;
+    int segs = 1;  // a power of two, so that it divides kTM
+    while (2 * segs * C2 <= kThreads && 2 * segs <= 8) segs *= 2;
+    const int seg_rows = kTM / segs;
+    for (int t = tid; t < C2 * segs; t += kThreads) {
+      const int c = 2 * (t % C2), r0 = (t / C2) * seg_rows;
+      __nv_bfloat162 wk[49];
+#pragma unroll
+      for (int i = 0; i < 49; ++i)
+        wk[i] = load_tap<__nv_bfloat162>(p.dwk + i * C + c);
+      const float2 bias = *reinterpret_cast<const float2*>(p.dwb + c);
+      dw7_walk<__nv_bfloat162>(
+          x, p.H, p.W, C, c, row0 + r0, seg_rows, total,
+          [&](int i, const __nv_bfloat162(&win)[7][7]) {
+            *reinterpret_cast<float2*>(accf + (r0 + i) * as + c) =
+                dw7_dot(win, wk, bias);
+          },
+          [&](int i) {
+            *reinterpret_cast<float2*>(accf + (r0 + i) * as + c) =
+                make_float2(0.0f, 0.0f);
+          });
     }
   } else {
     const int segs = C >= kThreads ? 1 : kThreads / C;  // 1, 2, 4 or 8
@@ -459,8 +533,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // Host side: pick the instantiation and launch on ``stream``. ``mode`` is
 // kQBf16, kQStatic or kQDyn; the head (HEAD, kernel C) carries the first
-// two, as the TPU's fused head does.
-template <bool HEAD>
+// two, as the TPU's fused head does. DWBF (kernel A only): bf16 taps.
+template <bool HEAD, bool DWBF = false>
 inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
                                       int mode, cudaStream_t stream) {
   if (p.C % 32 != 0 || mode < kQBf16 || mode > (HEAD ? kQStatic : kQDyn))
@@ -480,16 +554,19 @@ inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
   using BF = __nv_bfloat16;
   if constexpr (!HEAD) {
     if (mode == kQDyn) {
-      return x_bf16 ? go(fused_block_kernel<BF, kQDyn, HEAD>)
-                    : go(fused_block_kernel<float, kQDyn, HEAD>);
+      return x_bf16 ? go(fused_block_kernel<BF, kQDyn, HEAD, true, BF, DWBF>)
+                    : go(fused_block_kernel<float, kQDyn, HEAD, true, float,
+                                            DWBF>);
     }
   }
   if (x_bf16) {
-    return mode == kQStatic ? go(fused_block_kernel<BF, kQStatic, HEAD>)
-                            : go(fused_block_kernel<BF, kQBf16, HEAD>);
+    return mode == kQStatic
+               ? go(fused_block_kernel<BF, kQStatic, HEAD, true, BF, DWBF>)
+               : go(fused_block_kernel<BF, kQBf16, HEAD, true, BF, DWBF>);
   }
-  return mode == kQStatic ? go(fused_block_kernel<float, kQStatic, HEAD>)
-                          : go(fused_block_kernel<float, kQBf16, HEAD>);
+  return mode == kQStatic
+             ? go(fused_block_kernel<float, kQStatic, HEAD, true, float, DWBF>)
+             : go(fused_block_kernel<float, kQBf16, HEAD, true, float, DWBF>);
 }
 
 inline BlockParams make_block_params(

@@ -19,6 +19,12 @@ halo with bounds checks). Three GEMM modes, as on the TPU:
   dimension twice to know each row's GELU scale (ops/cuda/block.cuh); its
   launches count as ``fused_block_int8_dyn``.
 
+``dw_bf16=True`` runs the 49 depthwise taps in bf16, in any of the three
+modes, as the TPU's ``tap_dtype=bfloat16`` does
+(:func:`dwconv7_bf16_taps_plain` writes the arithmetic out; the kernel
+takes two channels a thread in bf16x2); its launches count as
+``fused_block_dwbf16`` and ``fused_block_int8_dyn_dwbf16``.
+
 Weights are prepared once (:func:`prepare_block`), in the layout the kernel
 reads: ``[out, in]`` GEMM operands. :func:`fused_block` launches the CUDA
 kernel (ops/cuda/fused_block.cu) for a CUDA tensor and runs
@@ -42,9 +48,9 @@ from .dwconv_bwd import dwconv7_ad
 from .int8_gemm import quant_rows
 
 __all__ = ["quantize_block_weights", "quantize_block_weights_folded",
-           "prepare_block", "fused_block", "fused_block_plain",
-           "block_residual_plain", "block_body_plain", "fused_block_ad",
-           "FusedBlock"]
+           "prepare_block", "dwconv7_bf16_taps_plain", "fused_block",
+           "fused_block_plain", "block_residual_plain", "block_body_plain",
+           "fused_block_ad", "FusedBlock"]
 
 K = 7
 PAD = 3
@@ -118,17 +124,41 @@ def prepare_block(dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,
     return pb
 
 
-def block_residual_plain(x, pb, eps: float = 1e-6):
+def dwconv7_bf16_taps_plain(x, dwk, dwb):
+    """Depthwise 7x7 (SAME) + bias of NHWC ``x`` with bf16 taps, the TPU's
+    ``tap_dtype=bfloat16`` (count_pipnet_tpu/ops/pallas/fused_block.py:
+    ``_dwconv_flat``, ``_dwconv_pad``): the plane and the [49, C] weights
+    ``dwk`` rounded to bf16; for each dx the 7 products, each rounded to
+    bf16, summed in bf16 in dy order; each per-dx sum cast to f32 and added
+    to the f32 bias ``dwb``, in dx order. PyTorch rounds after every bf16
+    operation, as the kernel does. Returns f32 [B, H, W, C]."""
+    b, h, w, c = x.shape
+    xp = F.pad(x.to(torch.bfloat16), (0, 0, PAD, PAD, PAD, PAD))
+    wk = dwk.to(torch.bfloat16)
+    acc = dwb.to(torch.float32).expand(b, h, w, c)
+    for dx in range(K):
+        vs = xp[:, 0:h, dx:dx + w] * wk[dx]
+        for dy in range(1, K):
+            vs = vs + xp[:, dy:dy + h, dx:dx + w] * wk[dy * K + dx]
+        acc = acc + vs.to(torch.float32)
+    return acc
+
+
+def block_residual_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     """Plain PyTorch block on NHWC ``x``; returns the f32 block output
     (before the cast to ``x.dtype``). The int8 GEMMs run in float64, which
-    holds their integer sums exactly. On a GPU, set
-    ``torch.backends.cudnn.allow_tf32 = False`` first: the depthwise conv
-    would otherwise run in TF32."""
+    holds their integer sums exactly. ``dw_bf16``: the depthwise taps of
+    :func:`dwconv7_bf16_taps_plain`. On a GPU, set
+    ``torch.backends.cudnn.allow_tf32 = False`` first: the f32 depthwise
+    conv would otherwise run in TF32."""
     x32 = x.to(torch.float32)
     c = x.shape[-1]
-    wk = pb["dwk"].t().reshape(c, 1, K, K)
-    d = F.conv2d(x32.permute(0, 3, 1, 2), wk, pb["dwb"], padding=PAD,
-                 groups=c).permute(0, 2, 3, 1)
+    if dw_bf16:
+        d = dwconv7_bf16_taps_plain(x, pb["dwk"], pb["dwb"])
+    else:
+        wk = pb["dwk"].t().reshape(c, 1, K, K)
+        d = F.conv2d(x32.permute(0, 3, 1, 2), wk, pb["dwb"], padding=PAD,
+                     groups=c).permute(0, 2, 3, 1)
     mu = d.mean(dim=-1, keepdim=True)
     var = (d - mu).square().mean(dim=-1, keepdim=True)
     n = (d - mu) * torch.rsqrt(var + eps) * pb["lns"] + pb["lnb"]
@@ -154,9 +184,9 @@ def block_residual_plain(x, pb, eps: float = 1e-6):
     return x32 + y * pb["g"]
 
 
-def fused_block_plain(x, pb, eps: float = 1e-6):
+def fused_block_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     """Plain version of kernel A: [B, H, W, C] -> same shape and dtype."""
-    return block_residual_plain(x, pb, eps).to(x.dtype)
+    return block_residual_plain(x, pb, eps, dw_bf16).to(x.dtype)
 
 
 def check_block_inputs(x, pb):
@@ -188,24 +218,27 @@ def block_args(x, pb):
             p(pb["g"])]
 
 
-def fused_block(x, pb, eps: float = 1e-6):
+def fused_block(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     """Whole ConvNeXt block on a compact NHWC plane ``x`` [B, H, W, C]
-    (f32 or bf16), weights from :func:`prepare_block`. Returns the block
-    output in ``x.dtype``. CUDA tensor: kernel A; CPU tensor: the plain
-    version."""
+    (f32 or bf16), weights from :func:`prepare_block`; ``dw_bf16``: bf16
+    depthwise taps. Returns the block output in ``x.dtype``. CUDA tensor:
+    kernel A; CPU tensor: the plain version."""
     if x.device.type == "cpu":
-        return fused_block_plain(x, pb, eps)
+        return fused_block_plain(x, pb, eps, dw_bf16)
     if x.device.type != "cuda":
         raise ValueError(f"fused_block: unsupported device {x.device}")
     check_block_inputs(x, pb)
+    if dw_bf16 and x.data_ptr() % 8:
+        raise ValueError("fused_block(dw_bf16=True) loads channel pairs: "
+                         "the plane must start 8-byte aligned")
     out = torch.empty_like(x)
     lib = _cuda.library()
     code = lib.cpt_fused_block(
-        x.data_ptr(), out.data_ptr(), *block_args(x, pb), float(eps),
-        _cuda.stream_ptr(x.device))
+        x.data_ptr(), out.data_ptr(), int(dw_bf16), *block_args(x, pb),
+        float(eps), _cuda.stream_ptr(x.device))
     _cuda.check(code, "fused_block")
-    _cuda.count_launch("fused_block_int8_dyn" if pb["dynamic"]
-                       else "fused_block", x.shape[-1])
+    name = "fused_block_int8_dyn" if pb["dynamic"] else "fused_block"
+    _cuda.count_launch(name + "_dwbf16" if dw_bf16 else name, x.shape[-1])
     return out
 
 
