@@ -31,7 +31,7 @@ BUILD_DIR = SRC_DIR / "_build"
 SOURCES = ("fused_block.cu", "gumbel_head.cu", "fused_mlp.cu",
            "fused_mlp_bwd.cu", "dwconv.cu", "dwconv_wgrad.cu",
            "fused_head.cu", "int8_gemm.cu")
-HEADERS = ("block.cuh", "common.cuh")
+HEADERS = ("block.cuh", "common.cuh", "sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -74,9 +74,17 @@ _SIGNATURES = {
     "cpt_fused_block_gumbel_counts": [_P] + _BLOCK_ARGS + [_P, _P, _U64,
                                                            _P],
     # x, res, out, x_bf16, res_bf16, R, C, lns, lnb, w1, b1, w2, b2, g,
-    # eps, stream
+    # eps, n (scratch), h (scratch), stream
     "cpt_fused_mlp": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                      _P, _F, _P],
+                      _P, _F, _P, _P, _P],
+    # K5's stages: x, x_bf16, n, R, C, lns, lnb, eps, stream
+    "cpt_mlp_ln_rows": [_P, _I, _P, _I, _I, _P, _P, _F, _P],
+    # n, w1, b1, h, R, C, stream
+    "cpt_mlp_up_gelu": [_P, _P, _P, _P, _I, _I, _P],
+    # h, w2, b2, g, res, res_bf16, out, R, C, stream
+    "cpt_mlp_down_residual": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
+    # the GEMM core: a, b, d (f32), M, N, K, stream
+    "cpt_sm90_gemm": [_P, _P, _P, _I, _I, _I, _P],
     # R, C, x_bf16, g_bf16 -> grid_rows, splits
     "cpt_fused_mlp_bwd_plan": [_I, _I, _I, _I, _IP, _IP],
     # x, g, dx, x_bf16, g_bf16, R, C, lns, lnb, w1, w1t, w2t, b1, gamma,

@@ -34,13 +34,9 @@
 // GEMM runs twice: 1.5 times the static mode's GEMM work. (A whole
 // [TM, 4C] GELU tile would be 393 KB in f32 at C = 768: it does not fit.)
 //
-// With DW = false the same kernel is K5 (fused_mlp.cu): step 1a loads the
-// rows of x (the depthwise output, computed outside) instead of convolving,
-// and the epilogue adds a separate residual plane of type TR.
-//
 // The GEMMs run on the tensor cores through mma.sync (m16n8k16 bf16,
-// m16n8k32 s8) with the weights read from L2 as [out, in] rows. wgmma, TMA
-// and a multi-stage weight pipeline are later work.
+// m16n8k32 s8) with the weights read from L2 as [out, in] rows. The
+// TMA-fed wgmma core of sm90.cuh (K5's GEMMs) is not used here yet.
 #pragma once
 
 #include <type_traits>
@@ -59,8 +55,7 @@ enum : int { kQBf16 = 0, kQStatic = 1, kQDyn = 2 };
 
 struct BlockParams {
   const void* x;    // [B*H*W, C] T
-  void* out;        // [B*H*W, C] TR (kernels A and K5)
-  const void* res;  // [B*H*W, C] TR residual (K5; kernel A adds x)
+  void* out;        // [B*H*W, C] T (kernel A)
   int B, H, W, C;
   const float* dwk;  // [49, C], tap (dy, dx) at row dy * 7 + dx
   const float* dwb;  // [C]
@@ -262,8 +257,7 @@ __host__ __device__ inline size_t block_smem_bytes(int C) {
          + (Q == kQDyn ? (size_t)3 * kTM * 4 : 0);  // row scales, abs-max
 }
 
-template <typename T, int Q, bool HEAD, bool DW = true, typename TR = T,
-          bool DWBF = false>
+template <typename T, int Q, bool HEAD, bool DWBF = false>
 __global__ void __launch_bounds__(kThreads)
     fused_block_kernel(const BlockParams p) {
   constexpr bool INT8 = Q != kQBf16;
@@ -299,16 +293,10 @@ __global__ void __launch_bounds__(kThreads)
   // CTA's rows (dw7_walk: the 7x7 window and the 49 taps in registers).
   // Neighbouring threads read neighbouring channels (coalesced). Below 256
   // channels (pairs) the rows are split into segs runs so more threads
-  // work. Without DW (K5) the rows of x are the LayerNorm input as they
-  // are. The f32 and bf16 tap branches stay apart: written as one loop
+  // work. The f32 and bf16 tap branches stay apart: written as one loop
   // over 1 or 2 channels a thread, the f32-tap instantiations rose from
   // 127-128 to 130-162 registers and ran up to 1.4 times slower (H100).
-  if constexpr (!DW) {
-    for (int idx = tid; idx < kTM * C; idx += kThreads) {
-      const int r = idx / C, c = idx - r * C, row = row0 + r;
-      accf[r * as + c] = row < total ? to_f32(x[(size_t)row * C + c]) : 0.0f;
-    }
-  } else if constexpr (DWBF) {
+  if constexpr (DWBF) {
     const int C2 = C / 2;
     int segs = 1;  // a power of two, so that it divides kTM
     while (2 * segs * C2 <= kThreads && 2 * segs <= 8) segs *= 2;
@@ -508,8 +496,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
   if constexpr (!HEAD) {
-    TR* out = static_cast<TR*>(p.out);
-    const TR* res = static_cast<const TR*>(DW ? p.x : p.res);
+    T* out = static_cast<T*>(p.out);
+    // the residual is x, read through a pointer taken here: reusing ``x``
+    // changed the f32-tap instantiations' code and made them 4-8 % slower
+    // (H100, same registers)
+    const T* res = static_cast<const T*>(p.x);
     for (int idx = tid; idx < kTM * C; idx += kThreads) {
       const int r = idx / C, c = idx - r * C, row = row0 + r;
       if (row >= total) continue;
@@ -554,19 +545,18 @@ inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
   using BF = __nv_bfloat16;
   if constexpr (!HEAD) {
     if (mode == kQDyn) {
-      return x_bf16 ? go(fused_block_kernel<BF, kQDyn, HEAD, true, BF, DWBF>)
-                    : go(fused_block_kernel<float, kQDyn, HEAD, true, float,
-                                            DWBF>);
+      return x_bf16 ? go(fused_block_kernel<BF, kQDyn, HEAD, DWBF>)
+                    : go(fused_block_kernel<float, kQDyn, HEAD, DWBF>);
     }
   }
   if (x_bf16) {
     return mode == kQStatic
-               ? go(fused_block_kernel<BF, kQStatic, HEAD, true, BF, DWBF>)
-               : go(fused_block_kernel<BF, kQBf16, HEAD, true, BF, DWBF>);
+               ? go(fused_block_kernel<BF, kQStatic, HEAD, DWBF>)
+               : go(fused_block_kernel<BF, kQBf16, HEAD, DWBF>);
   }
   return mode == kQStatic
-             ? go(fused_block_kernel<float, kQStatic, HEAD, true, float, DWBF>)
-             : go(fused_block_kernel<float, kQBf16, HEAD, true, float, DWBF>);
+             ? go(fused_block_kernel<float, kQStatic, HEAD, DWBF>)
+             : go(fused_block_kernel<float, kQBf16, HEAD, DWBF>);
 }
 
 inline BlockParams make_block_params(
@@ -576,7 +566,7 @@ inline BlockParams make_block_params(
     const float* s2, const float* b2, const float* i2, const float* g,
     float eps) {
   BlockParams p;
-  p.x = x; p.out = out; p.res = nullptr; p.B = B; p.H = H; p.W = W; p.C = C;
+  p.x = x; p.out = out; p.B = B; p.H = H; p.W = W; p.C = C;
   p.dwk = dwk; p.dwb = dwb; p.lns = lns; p.lnb = lnb;
   p.w1 = w1; p.s1 = s1; p.b1 = b1; p.i1 = i1;
   p.w2 = w2; p.s2 = s2; p.b2 = b2; p.i2 = i2;

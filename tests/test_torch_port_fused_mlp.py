@@ -13,10 +13,12 @@ import torch
 
 from count_pipnet_tpu.ops.pallas import fused_mlp as jmlp
 from count_pipnet_tpu.ops.pallas.fused_mlp_bwd import fused_mlp_bwd as j_k6
+from count_pipnet_tpu_torch.ops import fused_mlp as fm
 from count_pipnet_tpu_torch.ops.fused_mlp import (
     fused_ln_mlp_residual, fused_ln_mlp_residual_ad,
     fused_ln_mlp_residual_plain)
-from count_pipnet_tpu_torch.ops.fused_mlp_bwd import (fused_mlp_bwd,
+from count_pipnet_tpu_torch.ops.fused_mlp_bwd import (bf16_round,
+                                                      fused_mlp_bwd,
                                                       fused_mlp_bwd_plain)
 
 NAMES = ("dx", "dls", "dlb", "dw1", "db1", "dw2", "db2", "dgamma")
@@ -71,6 +73,124 @@ def test_k5_plain_matches_pallas_interpret(rows, c):
     via = fused_ln_mlp_residual(torch.from_numpy(p["x"]),
                                 torch.from_numpy(p["res"]), **_params(p))
     np.testing.assert_array_equal(via.numpy(), got)
+
+
+def _one_pass_plain(x, residual, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
+                    eps=1e-6):
+    """K5's plain version as one body, before it was split into the three
+    stages of the wgmma design: LayerNorm in f32, bf16 GEMM operands with
+    f32 sums, the GELU output rounded to bf16, the residual added in f32."""
+    c = x.shape[-1]
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    n = (x32 - mu) * torch.rsqrt(var + eps) * ln_scale.float().reshape(c) \
+        + ln_bias.float().reshape(c)
+    h = bf16_round(n) @ bf16_round(w1.float()).t() + b1.float()
+    a = torch.nn.functional.gelu(h, approximate="tanh")
+    y = bf16_round(a) @ bf16_round(w2.float()).t() + b2.float()
+    return (residual.float() + y * gamma.float().reshape(c)).to(
+        residual.dtype)
+
+
+@pytest.mark.parametrize("c", [32, 96])
+@pytest.mark.parametrize("res_dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dt", [torch.float32, torch.bfloat16])
+def test_k5_stages_compose_to_one_pass_plain(x_dt, res_dt, c):
+    """The three stage plain versions (ln_rows_plain, mlp_up_gelu_plain,
+    mlp_down_residual_plain) compose to the one-body plain version bit for
+    bit: the split rounds where the body did, to bf16 before each GEMM.
+    300 rows, not a multiple of the kernels' 128-row tiles."""
+    p = _setup(300, c, seed=8)
+    x = torch.from_numpy(p["x"]).to(x_dt)
+    res = torch.from_numpy(p["res"]).to(res_dt)
+    got = fused_ln_mlp_residual_plain(x, res, **_params(p))
+    want = _one_pass_plain(x, res, **_params(p))
+    assert got.dtype == res_dt and got.shape == res.shape
+    assert torch.equal(got, want)
+    q = _params(p)
+    n = fm.ln_rows_plain(x, q["ln_scale"], q["ln_bias"])
+    h = fm.mlp_up_gelu_plain(n, q["w1"], q["b1"])
+    assert n.dtype == h.dtype == torch.bfloat16
+    assert h.shape == (300, 4 * c)
+    assert torch.equal(fm.mlp_down_residual_plain(h, res, q["w2"], q["b2"],
+                                                  q["gamma"]), got)
+
+
+def test_k5_stage_wrappers_take_plain_on_cpu():
+    """On a CPU tensor each stage wrapper, and the GEMM core's, is its
+    plain version."""
+    p = _setup(70, 32, seed=9)
+    q = _params(p)
+    x = torch.from_numpy(p["x"])
+    n = fm.ln_rows(x, q["ln_scale"], q["ln_bias"])
+    assert torch.equal(n, fm.ln_rows_plain(x, q["ln_scale"], q["ln_bias"]))
+    h = fm.mlp_up_gelu(n, q["w1"], q["b1"])
+    assert torch.equal(h, fm.mlp_up_gelu_plain(n, q["w1"], q["b1"]))
+    res = torch.from_numpy(p["res"])
+    assert torch.equal(
+        fm.mlp_down_residual(h, res, q["w2"], q["b2"], q["gamma"]),
+        fm.mlp_down_residual_plain(h, res, q["w2"], q["b2"], q["gamma"]))
+    d = fm.sm90_gemm(n, q["w1"])
+    assert torch.equal(d, n.float() @ bf16_round(q["w1"]).t())
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.zeros(*shape, dtype=dtype, device="meta")
+
+
+_BAD_K5 = {
+    # what is wrong: (x, residual, parameter overrides, error, message)
+    "width": (_meta(8, 48), _meta(8, 48), {}, ValueError, "C % 32"),
+    "residual shape": (_meta(8, 32), _meta(8, 64), {}, ValueError,
+                       "residual"),
+    "w1 shape": (_meta(8, 32), _meta(8, 32), {"w1": _meta(32, 32)},
+                 ValueError, "weights"),
+    "w2 shape": (_meta(8, 32), _meta(8, 32), {"w2": _meta(128, 32)},
+                 ValueError, "weights"),
+    "x dtype": (_meta(8, 32, dtype=torch.float16), _meta(8, 32), {},
+                TypeError, "float16"),
+    "residual dtype": (_meta(8, 32), _meta(8, 32, dtype=torch.float64), {},
+                       TypeError, "float64"),
+    "device": (_meta(8, 32), _meta(8, 32), {}, ValueError,
+               "unsupported device"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD_K5))
+def test_k5_wrapper_refuses_before_launch(case, monkeypatch):
+    """A bad width, shape, dtype or device raises before the kernels'
+    library is built or called (the launches would read out of bounds or
+    the wrong type)."""
+    def no_library():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(fm._cuda, "library", no_library)
+    x, res, over, err, msg = _BAD_K5[case]
+    p = {k: _meta(*v.shape) for k, v in _params(_setup(8, 32)).items()}
+    p.update(over)
+    with pytest.raises(err, match=msg):
+        fused_ln_mlp_residual(x, res, **p)
+
+
+def test_k5_stage_wrappers_refuse_before_launch(monkeypatch):
+    """The stage wrappers check their operands the same way."""
+    def no_library():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(fm._cuda, "library", no_library)
+    p = {k: _meta(*v.shape) for k, v in _params(_setup(8, 32)).items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        fm.ln_rows(_meta(8, 32), p["ln_scale"], p["ln_bias"])
+    with pytest.raises(TypeError, match="float32"):
+        fm.mlp_up_gelu(_meta(8, 32), p["w1"], p["b1"])
+    with pytest.raises(ValueError, match="last dimension"):
+        fm.mlp_down_residual(_meta(8, 100, dtype=torch.bfloat16),
+                             _meta(8, 32), p["w2"], p["b2"], p["gamma"])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fm.sm90_gemm(_meta(8, 36), _meta(16, 36))
+    with pytest.raises(ValueError, match="unsupported devices"):
+        fm.sm90_gemm(_meta(8, 32), _meta(16, 32))
 
 
 def test_k5_plain_bf16_planes():
