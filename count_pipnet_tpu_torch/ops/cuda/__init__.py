@@ -85,14 +85,29 @@ _SIGNATURES = {
     "cpt_mlp_down_residual": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     # the GEMM core: a, b, d (f32), M, N, K, stream
     "cpt_sm90_gemm": [_P, _P, _P, _I, _I, _I, _P],
-    # R, C, x_bf16, g_bf16 -> grid_rows, splits
-    "cpt_fused_mlp_bwd_plan": [_I, _I, _I, _I, _IP, _IP],
+    # R, C -> grid_rows, splits of dW1, of dW2r
+    "cpt_fused_mlp_bwd_plan": [_I, _I, _IP, _IP, _IP],
+    # R, M, N -> splits
+    "cpt_mlp_wgrad_plan": [_I, _I, _I, _IP],
     # x, g, dx, x_bf16, g_bf16, R, C, lns, lnb, w1, w1t, w2t, b1, gamma,
-    # eps, nb, gb, ab, dhb, part, grid_rows, ws, splits, dw1, dw2r, vec,
-    # stream
+    # eps, mu, inv, nb, dyb, gb, ab, dhb, dn, part_a, part_b, part_d,
+    # grid_rows, ws, splits1, splits2, dw1, dw2r, vec, stream
     "cpt_fused_mlp_bwd": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                          _P, _P, _F, _P, _P, _P, _P, _P, _I, _P, _I, _P,
-                          _P, _P, _P],
+                          _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+    # K6's stages: x, x_bf16, g, g_bf16, R, C, lns, lnb, gamma, eps, mu,
+    # inv, nb, dyb, gb, part, grid_rows, sg, stream
+    "cpt_mlp_bwd_prologue": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _F, _P,
+                             _P, _P, _P, _P, _P, _I, _P, _P],
+    # nb, dyb, w1, w2t, b1, ab, dhb, part, R, C, db1, stream
+    "cpt_mlp_bwd_dual": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # dhb, w1t, dn, R, C, stream
+    "cpt_mlp_bwd_dn": [_P, _P, _P, _I, _I, _P],
+    # dn, x, x_bf16, mu, inv, lns, dx, R, C, part, grid_rows, dls_dlb,
+    # stream
+    "cpt_mlp_bwd_ln": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P],
+    # the MN-major GEMM core: a, b, out, ws, R, M, N, splits, stream
+    "cpt_mlp_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, out, x_bf16, out_bf16, B, H, W, C, w, bias, stream
     "cpt_dwconv7": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, g, bf16, B, H, W, C, seg, chunks, part, out, stream

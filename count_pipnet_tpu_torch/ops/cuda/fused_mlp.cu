@@ -120,16 +120,6 @@ struct DownResidual {
   }
 };
 
-// The GEMM core's raw f32 sums, for checking the core on its own.
-struct StoreF32 {
-  float* d;
-  int N;
-  __device__ __forceinline__ void operator()(int r, int c,
-                                             const float (&v)[8]) const {
-    store8(d + (size_t)r * N + c, v);
-  }
-};
-
 // Tile widths, ring depths and CTAs an SM (<BN, STAGES, MINB> of sm90.cuh).
 // GEMM 1 (N = 4C, a multiple of 128; K = C, 12 steps at C = 768) keeps
 // two 128-wide CTAs on an SM, so that one's GELU epilogue overlaps the
@@ -226,7 +216,7 @@ extern "C" int cpt_mlp_down_residual(const void* h, const void* w2,
 // tiles K5 takes for GEMM 1 (N = 4K) or else for GEMM 2.
 extern "C" int cpt_sm90_gemm(const void* a, const void* b, float* d, int M,
                              int N, int K, void* stream) {
-  const cpt::StoreF32 epi{d, N};
+  const cpt::sm90::StoreF32 epi{d, N};
   return (int)cpt::gemm(N == 4 * K, a, b, M, N, K, epi,
                         static_cast<cudaStream_t>(stream));
 }

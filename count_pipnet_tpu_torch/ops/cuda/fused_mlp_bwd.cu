@@ -12,377 +12,291 @@
 //
 // The TPU kernel runs one sequential grid and accumulates the [C, 4C]
 // weight gradients in VMEM across row tiles. On Hopper the accumulators
-// (9.4 MB f32 each at C = 768) fit in no SM, and blocks run in parallel,
-// so the work is split in two:
+// (9.4 MB f32 each at C = 768) fit in no SM and blocks run in parallel.
+// What bounds K6 is its five GEMMs, 40 R C^2 operations a call, so every
+// GEMM runs on the TMA-fed wgmma core of sm90.cuh, with the elementwise
+// work in row kernels and GEMM epilogues around it. Five launches and the
+// ordered sums of their partial rows, on the stream:
 //
-//   (a) mlp_bwd_rows_kernel, row-parallel: a CTA owns 32 rows at a time
-//       (persistent over tiles), recomputes n, h, a and gelu', computes
-//       da and dn on the tensor cores (mma.sync bf16, the 4C-wide chunk of
-//       128 in shared memory), the LayerNorm backward for dx, and adds the
-//       vector sums into its own row of a partial buffer (no atomics). It
-//       writes n, g, a and dh to device memory in bf16: the operands of
-//       (b). The TPU kernel kept those in VMEM; here they cost
-//       2 * R * 10C bytes of writes and reads.
-//   (b) gemm_tn_kernel, the two tall-skinny products dW1 and dW2r as
-//       tiles of 128 x 128, each summed over one fixed chunk of rows (split
-//       so the card has enough CTAs), then the chunks and the partial rows
-//       of (a) are added in a fixed order by sum_splits_kernel.
+//   a. bwd_prologue_kernel, one warp a row: mu and 1/sigma (f32 [R]),
+//      nb = bf16(LN(x)), dyb = bf16(g * gamma), gb = bf16(g), and the
+//      column sums of g (sg) into the CTA's partial row.
+//   b. the dual GEMM (sm90::dual_gemm): h = nb W1^T and da = dyb W2 for
+//      the same [128, 128] tile (C = 768; [128, 64] at C <= 384) in two
+//      accumulators; the epilogue adds b1, computes tanh-GELU and its
+//      derivative in f32, writes ab = bf16(a) and dhb = bf16(da *
+//      gelu'(h)), and the column sums of dh (db1) of the row tile into a
+//      partial row.
+//   c. dn = dhb W1 (sm90::gemm, K = 4C), f32 [R, C].
+//   d. bwd_ln_rows_kernel, one warp a row: dx = inv (dnh - mean dnh -
+//      xhat mean(dnh xhat)), dnh = dn * lns, in x's dtype; the column sums
+//      dls and dlb into the CTA's partial row.
+//   e. dW1 = dhb^T nb and dW2r = gb^T ab (sm90::gemm_mn: MN-major
+//      operands, K = R), split over R into a workspace when the tiles
+//      alone do not fill the card, the splits added in order.
 //
-// No float atomics anywhere: a run on the same card repeats bit for bit.
-// What bounds it: the five GEMMs, 10 * R * C * 4C flops per call.
-#include "block.cuh"
+// The bf16 operands go to device memory and back (nb, dyb, gb: 6 R C
+// bytes; ab, dhb: 16 R C; dn: 8 R C, each written once and read once or
+// twice): the TPU kernel kept them in VMEM. All are scratch that the caller
+// allocates. No float atomics anywhere: a run on the same card repeats bit
+// for bit. Bound to Python with ctypes (ops/fused_mlp_bwd.py).
+#include <type_traits>
+
+#include "common.cuh"
+#include "sm90.cuh"
 
 namespace cpt {
+namespace {
 
-constexpr int kBTM = 32;       // rows per tile in (a)
-constexpr int kBHC = 128;      // hidden chunk in (a)
-constexpr int kBThreads = 256;
-constexpr int kGM = 128, kGN = 128, kGK = 32;  // (b): tile, rows per step
-constexpr int kGThreads = 256;                 // 8 warps: 2 (M) x 4 (N)
-constexpr int kGS = kGM + 8;  // row stride: ldmatrix's 8 rows on 8 banks
+constexpr int kRowWarps = 8;  // rows kernels: one row a warp at a time
 
-struct MlpBwdParams {
-  const void* x;   // [R, C] TX, the block-body input (depthwise output)
-  const void* g;   // [R, C] TG, cotangent of the block output
-  void* dx;        // [R, C] TX
-  int R, C;
-  const float* lns;
-  const float* lnb;
-  const __nv_bfloat16* w1;   // [4C, C]  pw1 weight ([out, in])
-  const __nv_bfloat16* w1t;  // [C, 4C]  its transpose
-  const __nv_bfloat16* w2t;  // [4C, C]  pw2 weight transposed
-  const float* b1;           // [4C]
-  const float* gamma;        // [C]
-  float eps;
-  __nv_bfloat16* nb;   // [R, C]  out: LN output
-  __nv_bfloat16* gb;   // [R, C]  out: g
-  __nv_bfloat16* ab;   // [R, 4C] out: GELU output
-  __nv_bfloat16* dhb;  // [R, 4C] out: dh
-  float* part;         // [gridDim.x, 7C], zeroed: db1 | sg | dls | dlb
-};
+// The row kernels keep a lane's columns c = lane + 32 k, k < C / 32, in
+// registers: MAXNC is the most a lane holds (C <= 32 MAXNC), and the
+// register budget allows four CTAs an SM at MAXNC = 8, two above. A lane
+// loads all MAXNC columns of a row's planes without a branch, at clamped
+// indices (col), so that the loads are in flight together (loads under a
+// branch each wait for the last); only columns k < nc count. The
+// parameter vectors, which stay in L1, are read under the branch: read
+// ahead they would spill registers.
+#define CPT_ROW_MINB(maxnc) ((maxnc) <= 8 ? 4 : 2)
 
-__host__ __device__ inline size_t rows_smem_bytes(int C) {
-  return (size_t)kBTM * (C + 8) * 4          // dn accumulator
-         + 2 * (size_t)kBTM * (C + 8) * 2    // n and dy (bf16)
-         + (size_t)kBTM * (kBHC + 8) * 2     // dh chunk (bf16)
-         + 2 * kBHC * 4 + 2 * kBTM * 4;      // column sums, mu, 1/sigma
+__device__ __forceinline__ int col(int lane, int k, int C) {
+  const int c = lane + 32 * k;
+  return c < C ? c : C - 1;
 }
 
-template <typename TX, typename TG>
-__global__ void __launch_bounds__(kBThreads)
-    mlp_bwd_rows_kernel(const MlpBwdParams p) {
-  const int C = p.C, HD = 4 * C;
-  const int as = C + 8, ns = C + 8, hs = kBHC + 8;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g8 = lane >> 2, tq = lane & 3;
-  constexpr int kWarps = kBThreads / 32;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* nbs =
-      reinterpret_cast<__nv_bfloat16*>(smem + (size_t)kBTM * as * 4);
-  __nv_bfloat16* dys = nbs + kBTM * ns;
-  __nv_bfloat16* hsm = dys + kBTM * ns;
-  float* colsum = reinterpret_cast<float*>(hsm + kBTM * hs);
-  float* mu_s = colsum + 2 * kBHC;
-  float* inv_s = mu_s + kBTM;
-
-  const TX* x = static_cast<const TX*>(p.x);
-  const TG* g = static_cast<const TG*>(p.g);
-  const unsigned char* w1 = reinterpret_cast<const unsigned char*>(p.w1);
-  const unsigned char* w1t = reinterpret_cast<const unsigned char*>(p.w1t);
-  const unsigned char* w2t = reinterpret_cast<const unsigned char*>(p.w2t);
-  float* part = p.part + (size_t)blockIdx.x * 7 * C;
-  const int ntiles = (p.R + kBTM - 1) / kBTM;
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int row0 = tile * kBTM;
-
-    // 1. LayerNorm statistics, n and dy = g * gamma as bf16 GEMM operands
-    // (one warp a row); n and g to device memory for (b). Rows past R are
-    // zeros: their dy is 0, so they add nothing to any sum.
-    for (int r = warp; r < kBTM; r += kWarps) {
-      const int row = row0 + r;
-      const bool ok = row < p.R;
-      const TX* xr = x + (size_t)row * C;
-      const TG* gr = g + (size_t)row * C;
-      float s = 0.0f;
-      if (ok)
-        for (int c = lane; c < C; c += 32) s += to_f32(xr[c]);
-      const float mu = warp_sum(s) / C;
-      float v = 0.0f;
-      if (ok)
-        for (int c = lane; c < C; c += 32) {
-          const float t = to_f32(xr[c]) - mu;
-          v += t * t;
+// The warps' column sums ``v`` (k < nc) added in warp order into ``out``
+// (C floats of this CTA's partial row), through ``red`` (C floats).
+template <int MAXNC>
+__device__ __forceinline__ void cta_column_sums(const float (&v)[MAXNC],
+                                                float* red, float* out,
+                                                int C) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nc = C / 32;
+  for (int w = 0; w < kRowWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int k = 0; k < MAXNC; ++k)
+        if (k < nc) {
+          const int c = lane + 32 * k;
+          red[c] = (w == 0 ? 0.0f : red[c]) + v[k];
         }
-      const float inv = rsqrtf(warp_sum(v) / C + p.eps);
-      if (lane == 0) {
-        mu_s[r] = mu;
-        inv_s[r] = inv;
-      }
-      for (int c = lane; c < C; c += 32) {
-        const float xv = ok ? to_f32(xr[c]) : 0.0f;
-        const __nv_bfloat16 nv =
-            __float2bfloat16_rn((xv - mu) * inv * p.lns[c] + p.lnb[c]);
-        const float gv = ok ? to_f32(gr[c]) : 0.0f;
-        nbs[r * ns + c] = nv;
-        dys[r * ns + c] = __float2bfloat16_rn(gv * p.gamma[c]);
-        if (ok) {
-          p.nb[(size_t)row * C + c] = nv;
-          p.gb[(size_t)row * C + c] = __float2bfloat16_rn(gv);
-        }
-      }
     }
-    for (int idx = tid; idx < kBTM * as; idx += kBThreads) acc[idx] = 0.0f;
     __syncthreads();
+  }
+  for (int c = threadIdx.x; c < C; c += blockDim.x) out[c] = red[c];
+  __syncthreads();
+}
 
-    // 2. hidden chunks of 128
-    for (int j0 = 0; j0 < HD; j0 += kBHC) {
-      // h = n W1^T and da = dy W2 for the chunk: warp -> m-tile (warp & 1)
-      // and 4 n-tiles; both products land in the same fragment slots
-      const int mt = warp & 1, nbase = (warp >> 1) * 4;
-      float hc[4][4], dc[4][4];
+// a. LayerNorm statistics and the bf16 GEMM operands (two-pass mean and
+// variance, rsqrtf(var / C + eps), as K5's ln_rows_kernel); partial row:
+// sg [C].
+template <int MAXNC, typename TX, typename TG>
+__global__ void __launch_bounds__(32 * kRowWarps, CPT_ROW_MINB(MAXNC))
+    bwd_prologue_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
+                        int R, int C, const float* __restrict__ lns,
+                        const float* __restrict__ lnb,
+                        const float* __restrict__ gamma, float eps,
+                        float* __restrict__ mu_out,
+                        float* __restrict__ inv_out,
+                        __nv_bfloat16* __restrict__ nb,
+                        __nv_bfloat16* __restrict__ dyb,
+                        __nv_bfloat16* __restrict__ gb,
+                        float* __restrict__ part) {
+  __shared__ float red[32 * MAXNC];
+  const int lane = threadIdx.x % 32, nc = C / 32;
+  float sg[MAXNC];
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+  for (int k = 0; k < MAXNC; ++k) sg[k] = 0.0f;
+  for (int row = blockIdx.x * kRowWarps + threadIdx.x / 32; row < R;
+       row += gridDim.x * kRowWarps) {
+    const size_t o = (size_t)row * C;
+    float xv[MAXNC], gv[MAXNC];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) hc[t][e] = dc[t][e] = 0.0f;
-#pragma unroll 2
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        uint32_t an[4], ad[4];
-        load_frag_a(an,
-                    reinterpret_cast<const unsigned char*>(
-                        nbs + (mt * 16) * ns + k0), ns * 2, lane);
-        load_frag_a(ad,
-                    reinterpret_cast<const unsigned char*>(
-                        dys + (mt * 16) * ns + k0), ns * 2, lane);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const size_t off = ((size_t)(j0 + (nbase + t) * 8) * C + k0) * 2;
-          uint32_t bf[2];
-          load_frag_b(bf, w1 + off, C * 2, lane);
-          mma(hc[t], an, bf, __nv_bfloat16());
-          load_frag_b(bf, w2t + off, C * 2, lane);
-          mma(dc[t], ad, bf, __nv_bfloat16());
-        }
-      }
-      // GELU and its derivative; dh to shared memory (bf16) and, with a,
-      // to device memory; column sums of dh (f32) for db1
-      float cs[4][2];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        cs[t][0] = cs[t][1] = 0.0f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = mt * 16 + g8 + (e >> 1) * 8;
-          const int jl = (nbase + t) * 8 + tq * 2 + (e & 1);
-          const int j = j0 + jl;
-          const float h = hc[t][e] + p.b1[j];
-          const float k0c = 0.7978845608028654f, k1 = 0.044715f;
-          const float th = tanhf(k0c * (h + k1 * h * h * h));
-          const float a = 0.5f * h * (1.0f + th);
-          const float dg = 0.5f * (1.0f + th) +
-                           0.5f * h * (1.0f - th * th) * k0c *
-                               (1.0f + 3.0f * k1 * h * h);
-          const float dh = dc[t][e] * dg;
-          const __nv_bfloat16 dhb = __float2bfloat16_rn(dh);
-          hsm[r * hs + jl] = dhb;
-          const int row = row0 + r;
-          if (row < p.R) {
-            p.ab[(size_t)row * HD + j] = __float2bfloat16_rn(a);
-            p.dhb[(size_t)row * HD + j] = dhb;
-          }
-          cs[t][e & 1] += dh;
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          float v = cs[t][k];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (g8 == 0) colsum[mt * kBHC + (nbase + t) * 8 + tq * 2 + k] = v;
-        }
-      __syncthreads();
-      for (int jl = tid; jl < kBHC; jl += kBThreads)
-        part[j0 + jl] += colsum[jl] + colsum[kBHC + jl];
-      // dn [32, C] += dh chunk @ W1[j0:j0+128, :]
-      const int ntn = C / 8;
-#pragma unroll 2
-      for (int t = warp; t < 2 * ntn; t += kWarps) {
-        const int mt2 = t & 1, n0 = (t >> 1) * 8;
-        float c4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int k0 = 0; k0 < kBHC; k0 += 16) {
-          uint32_t a[4], bf[2];
-          load_frag_a(a,
-                      reinterpret_cast<const unsigned char*>(
-                          hsm + (mt2 * 16) * hs + k0), hs * 2, lane);
-          load_frag_b(bf, w1t + ((size_t)n0 * HD + j0 + k0) * 2, HD * 2,
-                      lane);
-          mma(c4, a, bf, __nv_bfloat16());
-        }
-        float* dst = acc + (mt2 * 16 + g8) * as + n0 + tq * 2;
-        dst[0] += c4[0];
-        dst[1] += c4[1];
-        dst[8 * as] += c4[2];
-        dst[8 * as + 1] += c4[3];
-      }
-      __syncthreads();
+    for (int k = 0; k < MAXNC; ++k) {
+      xv[k] = to_f32(x[o + col(lane, k, C)]);
+      gv[k] = to_f32(g[o + col(lane, k, C)]);
     }
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < MAXNC; ++k)
+      if (k < nc) s += xv[k];
+    const float mu = warp_sum(s) / C;
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < MAXNC; ++k)
+      if (k < nc) {
+        const float t = xv[k] - mu;
+        v += t * t;
+      }
+    const float inv = rsqrtf(warp_sum(v) / C + eps);
+    if (lane == 0) {
+      mu_out[row] = mu;
+      inv_out[row] = inv;
+    }
+#pragma unroll
+    for (int k = 0; k < MAXNC; ++k)
+      if (k < nc) {
+        const int c = lane + 32 * k;
+        nb[o + c] =
+            __float2bfloat16_rn((xv[k] - mu) * inv * lns[c] + lnb[c]);
+        dyb[o + c] = __float2bfloat16_rn(gv[k] * gamma[c]);
+        gb[o + c] = __float2bfloat16_rn(gv[k]);
+        sg[k] += gv[k];
+      }
+  }
+  cta_column_sums<MAXNC>(sg, red, part + (size_t)blockIdx.x * C, C);
+}
 
-    // 3. LayerNorm backward, one warp a row:
-    //    dx = inv * (dnh - mean(dnh) - xhat * mean(dnh * xhat)), dnh = dn*ls
-    for (int r = warp; r < kBTM; r += kWarps) {
-      const int row = row0 + r;
-      if (row >= p.R) break;
-      const float mu = mu_s[r], inv = inv_s[r];
-      const TX* xr = x + (size_t)row * C;
-      float s1 = 0.0f, s2 = 0.0f;
-      for (int c = lane; c < C; c += 32) {
-        const float xh = (to_f32(xr[c]) - mu) * inv;
-        const float dnh = acc[r * as + c] * p.lns[c];
+// d. LayerNorm backward; partial row: dls [C] | dlb [C].
+template <int MAXNC, typename TX>
+__global__ void __launch_bounds__(32 * kRowWarps, CPT_ROW_MINB(MAXNC))
+    bwd_ln_rows_kernel(const float* __restrict__ dn,
+                       const TX* __restrict__ x,
+                       const float* __restrict__ mu_in,
+                       const float* __restrict__ inv_in,
+                       const float* __restrict__ lns, TX* __restrict__ dx,
+                       int R, int C, float* __restrict__ part) {
+  __shared__ float red[32 * MAXNC];
+  const int lane = threadIdx.x % 32, nc = C / 32;
+  float dls[MAXNC], dlb[MAXNC];
+#pragma unroll
+  for (int k = 0; k < MAXNC; ++k) dls[k] = dlb[k] = 0.0f;
+  for (int row = blockIdx.x * kRowWarps + threadIdx.x / 32; row < R;
+       row += gridDim.x * kRowWarps) {
+    const size_t o = (size_t)row * C;
+    const float mu = mu_in[row], inv = inv_in[row];
+    float xh[MAXNC], d[MAXNC];  // dn * lns is recomputed: registers
+#pragma unroll
+    for (int k = 0; k < MAXNC; ++k) {
+      d[k] = dn[o + col(lane, k, C)];
+      xh[k] = to_f32(x[o + col(lane, k, C)]);
+    }
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < MAXNC; ++k)
+      if (k < nc) {
+        const float dnh = d[k] * lns[lane + 32 * k];
+        xh[k] = (xh[k] - mu) * inv;
+        dls[k] += d[k] * xh[k];
+        dlb[k] += d[k];
         s1 += dnh;
-        s2 += dnh * xh;
+        s2 += dnh * xh[k];
       }
-      const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-      TX* dxr = static_cast<TX*>(p.dx) + (size_t)row * C;
-      for (int c = lane; c < C; c += 32) {
-        const float xh = (to_f32(xr[c]) - mu) * inv;
-        const float dnh = acc[r * as + c] * p.lns[c];
-        store_as(dxr + c, inv * (dnh - m1 - xh * m2));
+    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+#pragma unroll
+    for (int k = 0; k < MAXNC; ++k)
+      if (k < nc) {
+        const float dnh = d[k] * lns[lane + 32 * k];
+        store_as(dx + o + lane + 32 * k, inv * (dnh - m1 - xh[k] * m2));
       }
-    }
-    // 4. column sums sg, dls, dlb of the tile (a thread a channel, rows in
-    // order) into this CTA's partial row
-    for (int c = tid; c < C; c += kBThreads) {
-      float sg = 0.0f, dls = 0.0f, dlb = 0.0f;
-      for (int r = 0; r < kBTM; ++r) {
-        const int row = row0 + r;
-        if (row >= p.R) break;
-        const float dn = acc[r * as + c];
-        const float xh =
-            (to_f32(x[(size_t)row * C + c]) - mu_s[r]) * inv_s[r];
-        sg += to_f32(g[(size_t)row * C + c]);
-        dls += dn * xh;
-        dlb += dn;
-      }
-      part[HD + c] += sg;
-      part[HD + C + c] += dls;
-      part[HD + 2 * C + c] += dlb;
-    }
-    __syncthreads();
   }
+  float* out = part + (size_t)blockIdx.x * 2 * C;
+  cta_column_sums<MAXNC>(dls, red, out, C);
+  cta_column_sums<MAXNC>(dlb, red, out + C, C);
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
-// the address of row l % 8 of matrix l / 8 and receives, of each matrix,
-// the elements (2 * (l % 4), l / 4) and (2 * (l % 4) + 1, l / 4).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* row) {
-  const uint32_t a =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// tanh-GELU and its derivative (f32), as the plain version's
+// gelu_tanh_and_grad.
+__device__ __forceinline__ void gelu_tanh_and_grad(float h, float& a,
+                                                   float& dg) {
+  const float k0 = 0.7978845608028654f, k1 = 0.044715f;
+  const float th = tanhf(k0 * (h + k1 * h * h * h));
+  a = 0.5f * h * (1.0f + th);
+  dg = 0.5f * (1.0f + th) +
+       0.5f * h * (1.0f - th * th) * k0 * (1.0f + 3.0f * k1 * h * h);
 }
 
-// out[s][m, n] = sum over rows r of chunk s of A[r, m] * B[r, n]; A [R, M]
-// and B [R, N] bf16 row-major, M and N multiples of 32. A 128 x 128 tile
-// per CTA, 8 warps of 64 x 32. Each step stores 32 rows of both operands
-// in shared memory as they lie in device memory (16-byte stores), while
-// the next 32 rows are loaded into registers; ldmatrix.trans turns the
-// [r][m] and [r][n] tiles into mma.sync's A and B fragments.
-__global__ void __launch_bounds__(kGThreads)
-    gemm_tn_kernel(const __nv_bfloat16* __restrict__ A,
-                   const __nv_bfloat16* __restrict__ B, float* out, int R,
-                   int M, int N, int rows_per_split) {
-  __shared__ __align__(16) __nv_bfloat16 As[kGK][kGS];
-  __shared__ __align__(16) __nv_bfloat16 Bs[kGK][kGS];
-  const int n0 = blockIdx.x * kGN, m0 = blockIdx.y * kGM, s = blockIdx.z;
-  const int r_begin = s * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g8 = lane >> 2, tq = lane & 3;
-  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
-  const int mr = lane & 7, mj = lane >> 3;  // ldmatrix: row, matrix
-  float c[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[i][t][e] = 0.0f;
+// b. the dual GEMM's epilogue: d1 = n W1^T, d2 = dy W2 of one [128, BN]
+// tile. In registers: a = gelu(d1 + b1), dh = d2 * gelu'(d1 + b1); the
+// column sums of dh over the tile's rows (lanes of a warp that share
+// columns by shuffles, then the eight warps in order); bf16 a and dh
+// staged through shared memory and stored as whole 16-byte row pieces.
+// Rows past R have zero operands (the TMA fills them), so dh = 0 there and
+// the sums need no mask.
+struct GeluBwd {
+  const float* b1;
+  __nv_bfloat16* ab;
+  __nv_bfloat16* dhb;
+  float* part;  // [ceil(R / 128), 4C]: the row tiles' column sums of dh
 
-  // 32 rows x 128 columns = 512 chunks of 8 per operand, 2 per thread
-  uint4 va[2], vb[2];
-  auto fetch = [&](int r0) {
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * kGThreads;
-      const int row = r0 + (idx >> 4), q = (idx & 15) * 8;
-      va[it] = vb[it] = make_uint4(0u, 0u, 0u, 0u);
-      if (row < r_end && m0 + q < M)
-        va[it] = *reinterpret_cast<const uint4*>(A + (size_t)row * M + m0 +
-                                                 q);
-      if (row < r_end && n0 + q < N)
-        vb[it] = *reinterpret_cast<const uint4*>(B + (size_t)row * N + n0 +
-                                                 q);
-    }
-  };
-  fetch(r_begin);
-  for (int r0 = r_begin; r0 < r_end; r0 += kGK) {
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = tid + it * kGThreads;
-      const int rr = idx >> 4, q = (idx & 15) * 8;
-      *reinterpret_cast<uint4*>(&As[rr][q]) = va[it];
-      *reinterpret_cast<uint4*>(&Bs[rr][q]) = vb[it];
-    }
-    __syncthreads();
-    if (r0 + kGK < r_end) fetch(r0 + kGK);
-#pragma unroll
-    for (int k0 = 0; k0 < kGK; k0 += 16) {
-      // A of m-tile i: matrices (k0, m), (k0, m + 8), (k0 + 8, m),
-      // (k0 + 8, m + 8) of the [r][m] tile
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4_trans(a[i], &As[k0 + (mj >> 1) * 8 + mr]
-                                   [wm + i * 16 + (mj & 1) * 8]);
-      // B of n-tiles 2j and 2j + 1: matrices (k0, n), (k0 + 8, n),
-      // (k0, n + 8), (k0 + 8, n + 8) of the [r][n] tile
-      uint32_t b[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldmatrix_x4_trans(b[j], &Bs[k0 + (mj & 1) * 8 + mr]
-                                   [wn + j * 16 + (mj >> 1) * 8]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const uint32_t bt[2] = {b[t >> 1][(t & 1) * 2],
-                                  b[t >> 1][(t & 1) * 2 + 1]};
-          mma(c[i][t], a[i], bt, __nv_bfloat16());
-        }
-    }
-    __syncthreads();
+  template <int BN>
+  __host__ __device__ static constexpr int stride() {
+    return BN + 8;  // bf16: 8 rows of a warp's pair stores on 32 banks
   }
-  float* o = out + (size_t)s * M * N;
+  template <int BN>
+  __host__ __device__ static constexpr int smem_bytes() {
+    return 2 * sm90::kBM * stride<BN>() * 2 + kRowWarps * BN * 4;
+  }
+
+  template <int H>  // H = BN / 2 accumulators a thread
+  __device__ __forceinline__ void operator()(float (&h)[H], float (&da)[H],
+                                             unsigned char* smem, int m0,
+                                             int n0, int M, int N) const {
+    constexpr int BN = 2 * H, S = stride<BN>();
+    __nv_bfloat16* ta = reinterpret_cast<__nv_bfloat16*>(smem);
+    __nv_bfloat16* td = ta + sm90::kBM * S;
+    float* cs = reinterpret_cast<float*>(td + sm90::kBM * S);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int r0 = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const float2 b = *reinterpret_cast<const float2*>(b1 + n0 + c);
+      float s[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + i * 16 + g8 + (e >> 1) * 8;
-        const int n = n0 + wn + t * 8 + tq * 2 + (e & 1);
-        if (m < M && n < N) o[(size_t)m * N + n] = c[i][t][e];
+        float a, dg;
+        gelu_tanh_and_grad(h[4 * j + e] + (e & 1 ? b.y : b.x), a, dg);
+        h[4 * j + e] = a;
+        da[4 * j + e] *= dg;
+        s[e & 1] += da[4 * j + e];
       }
-}
+      *reinterpret_cast<__nv_bfloat162*>(ta + r0 * S + c) =
+          __floats2bfloat162_rn(h[4 * j], h[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(ta + (r0 + 8) * S + c) =
+          __floats2bfloat162_rn(h[4 * j + 2], h[4 * j + 3]);
+      *reinterpret_cast<__nv_bfloat162*>(td + r0 * S + c) =
+          __floats2bfloat162_rn(da[4 * j], da[4 * j + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(td + (r0 + 8) * S + c) =
+          __floats2bfloat162_rn(da[4 * j + 2], da[4 * j + 3]);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s[0] += __shfl_xor_sync(0xffffffffu, s[0], off);
+        s[1] += __shfl_xor_sync(0xffffffffu, s[1], off);
+      }
+      if (lane < 4) {
+        cs[warp * BN + c] = s[0];
+        cs[warp * BN + c + 1] = s[1];
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(sm90::kConsumers) : "memory");
+    for (int i = threadIdx.x; i < sm90::kBM * (BN / 8);
+         i += sm90::kConsumers) {
+      const int r = i / (BN / 8), c = 8 * (i % (BN / 8));
+      if (m0 + r < M) {
+        const size_t o = (size_t)(m0 + r) * N + n0 + c;
+        *reinterpret_cast<uint4*>(ab + o) =
+            *reinterpret_cast<const uint4*>(ta + r * S + c);
+        *reinterpret_cast<uint4*>(dhb + o) =
+            *reinterpret_cast<const uint4*>(td + r * S + c);
+      }
+    }
+    for (int c = threadIdx.x; c < BN; c += sm90::kConsumers) {
+      float v = 0.0f;
+      for (int w = 0; w < kRowWarps; ++w) v += cs[w * BN + c];
+      part[(size_t)(m0 / sm90::kBM) * N + n0 + c] = v;
+    }
+  }
+};
+
+// e.: split z of the rows writes the z-th [M, N] slab of the workspace.
+struct StoreSplit {
+  float* d;
+  int M, N;
+  __host__ __device__ sm90::StoreF32 split(int z) const {
+    return sm90::StoreF32{d + (size_t)z * M * N, N};
+  }
+};
 
 // out[i] = sum over s = 0 .. S-1 of in[s * n + i], in that order.
 __global__ void sum_splits_kernel(const float* __restrict__ in, float* out,
@@ -395,112 +309,267 @@ __global__ void sum_splits_kernel(const float* __restrict__ in, float* out,
   }
 }
 
-template <typename TX, typename TG>
-cudaError_t rows_kernel_ready(int C, int* per_sm) {
-  const size_t smem = rows_smem_bytes(C);
-  auto kernel = mlp_bwd_rows_kernel<TX, TG>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
-                                                         kBThreads, smem);
-  return cudaSuccess;
-}
-
-template <typename F>
-cudaError_t with_types(int x_bf16, int g_bf16, F f) {
-  using BF = __nv_bfloat16;
-  if (x_bf16) return g_bf16 ? f(BF(), BF()) : f(BF(), float());
-  return g_bf16 ? f(float(), BF()) : f(float(), float());
-}
-
-int gemm_splits(int R, int M, int N, int sms) {
-  const int tiles = ((N + kGN - 1) / kGN) * ((M + kGM - 1) / kGM);
-  int s = (4 * sms + tiles - 1) / tiles;
-  const int max_s = (R + 255) / 256;  // at least 256 rows a chunk
-  return s < 1 ? 1 : (s > max_s ? (max_s < 1 ? 1 : max_s) : s);
-}
-
-int rows_per_split(int R, int S) {
-  const int per = (R + S - 1) / S;
-  return (per + kGK - 1) / kGK * kGK;
-}
-
-cudaError_t launch_gemm_tn(const __nv_bfloat16* A, const __nv_bfloat16* B,
-                           float* out, float* ws, int R, int M, int N, int S,
-                           cudaStream_t stream) {
-  const int per = rows_per_split(R, S);
-  const dim3 grid((N + kGN - 1) / kGN, (M + kGM - 1) / kGM, S);
-  gemm_tn_kernel<<<grid, kGThreads, 0, stream>>>(A, B, S == 1 ? out : ws, R,
-                                                 M, N, per);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || S == 1) return err;
-  sum_splits_kernel<<<256, 256, 0, stream>>>(ws, out, S, M * N);
+cudaError_t sum_rows(const float* part, float* out, int S, int n,
+                     cudaStream_t st) {
+  const int need = (n + 255) / 256;
+  const int blocks = need < 1024 ? need : 1024;
+  sum_splits_kernel<<<blocks, 256, 0, st>>>(part, out, S, n);
   return cudaGetLastError();
 }
 
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The row kernels' grid: as many CTAs as fit on the card at once, at most
+// one for each kRowWarps rows. The partial rows, and so the order of the
+// column sums, depend on it: the same card repeats bit for bit.
+int rows_grid(int R, int C, int sms) {
+  const int ctas = CPT_ROW_MINB(C <= 256 ? 8 : 32) * sms;
+  const int need = (R + kRowWarps - 1) / kRowWarps;
+  return need < ctas ? need : ctas;
+}
+
+// The weight gradients' tiles: 128 x 256, one CTA an SM, where 256
+// divides N (a 256-wide tile reads less shared memory a product); else
+// 128 x 128, two CTAs an SM.
+bool wgrad_wide(int N) { return N % 256 == 0; }
+
+// The weight-gradient splits: the tiles of one product times the splits in
+// whole waves, each split's steps plus a fill and an epilogue, plus the
+// ordered sum of the workspace; the cheapest by that model (about 0.56 us
+// a 64-row step of a 128 x 128 tile with two CTAs an SM or of a 128 x 256
+// tile alone, 4 us a tile of fill and epilogue, the sum at 3 TB/s).
+int wgrad_splits(int R, int M, int N, int sms) {
+  const int bn = wgrad_wide(N) ? 256 : 128;
+  const int tiles = ((M + 127) / 128) * ((N + bn - 1) / bn);
+  const int steps = (R + sm90::kBK - 1) / sm90::kBK;
+  const int slots = (bn == 256 ? 1 : 2) * sms;
+  int best = 1;
+  double best_us = 1e30;
+  for (int s = 1; s <= 256 && s <= steps; ++s) {
+    const int per = (steps + s - 1) / s;
+    if ((s - 1) * per >= steps) continue;  // an empty split
+    const int waves = (tiles * s + slots - 1) / slots;
+    const double us = waves * (0.56 * per + 4.0) +
+                      (s > 1 ? (s + 1.0) * M * N * 4 / 3e6 : 0.0);
+    if (us < best_us) {
+      best_us = us;
+      best = s;
+    }
+  }
+  return best;
+}
+
+// The row kernels' MAXNC for C: C / 32 rounded up to 8, 16, 24 or 32 (no
+// more registers than C = 256, 512, 768 or 1024 need).
+template <typename F>
+cudaError_t with_width(int C, F f) {
+  if (C % 32 != 0 || C <= 0 || C > 1024) return cudaErrorInvalidValue;
+  if (C <= 256) return f(std::integral_constant<int, 8>());
+  if (C <= 512) return f(std::integral_constant<int, 16>());
+  if (C <= 768) return f(std::integral_constant<int, 24>());
+  return f(std::integral_constant<int, 32>());
+}
+
+cudaError_t prologue(const void* x, int x_bf16, const void* g, int g_bf16,
+                     int R, int C, const float* lns, const float* lnb,
+                     const float* gamma, float eps, float* mu, float* inv,
+                     void* nb, void* dyb, void* gb, float* part, int grid,
+                     float* sg, cudaStream_t st) {
+  using BF = __nv_bfloat16;
+  cudaError_t err = with_width(C, [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+    auto go = [&](auto tx, auto tg) {
+      using TX = decltype(tx);
+      using TG = decltype(tg);
+      bwd_prologue_kernel<NC, TX, TG><<<grid, 32 * kRowWarps, 0, st>>>(
+          static_cast<const TX*>(x), static_cast<const TG*>(g), R, C, lns,
+          lnb, gamma, eps, mu, inv, static_cast<BF*>(nb),
+          static_cast<BF*>(dyb), static_cast<BF*>(gb), part);
+      return cudaGetLastError();
+    };
+    if (x_bf16) return g_bf16 ? go(BF(), BF()) : go(BF(), float());
+    return g_bf16 ? go(float(), BF()) : go(float(), float());
+  });
+  if (err != cudaSuccess) return err;
+  return sum_rows(part, sg, grid, C, st);
+}
+
+// b. At C = 768 (12 K steps a tile) BN = 128: 128 accumulator registers
+// a thread, three stages of four 16 KB tiles, one CTA an SM. At C <= 384
+// (at most 6 K steps) the fill and the epilogue weigh more than the
+// wgmma: BN = 64 and two stages, so that two CTAs share an SM and one's
+// epilogue runs under the other's wgmma. 4C is a multiple of 128.
+cudaError_t dual(const void* nb, const void* dyb, const void* w1,
+                 const void* w2t, const float* b1, void* ab, void* dhb,
+                 float* part, int R, int C, float* db1, cudaStream_t st) {
+  using BF = __nv_bfloat16;
+  const GeluBwd epi{b1, static_cast<BF*>(ab), static_cast<BF*>(dhb), part};
+  cudaError_t err =
+      C <= 384
+          ? sm90::dual_gemm<64, 2, 2>(nb, w1, dyb, w2t, R, 4 * C, C, epi, st)
+          : sm90::dual_gemm<128, 3, 1>(nb, w1, dyb, w2t, R, 4 * C, C, epi,
+                                       st);
+  if (err != cudaSuccess) return err;
+  return sum_rows(part, db1, (R + sm90::kBM - 1) / sm90::kBM, 4 * C, st);
+}
+
+// c. the tiles K5 takes for its GEMM 2 (N = C, K = 4C): 256 wide, one CTA
+// an SM, where 256 divides C; else 128 or 96, two CTAs an SM.
+cudaError_t dn_gemm(const void* dhb, const void* w1t, float* dn, int R,
+                    int C, cudaStream_t st) {
+  const sm90::StoreF32 epi{dn, C};
+  if (C % 256 == 0)
+    return sm90::gemm<256, 4, 1>(dhb, w1t, R, C, 4 * C, epi, st);
+  if (C % 128 == 0)
+    return sm90::gemm<128, 3, 2>(dhb, w1t, R, C, 4 * C, epi, st);
+  return sm90::gemm<96, 3, 2>(dhb, w1t, R, C, 4 * C, epi, st);
+}
+
+cudaError_t ln_bwd(const float* dn, const void* x, int x_bf16,
+                   const float* mu, const float* inv, const float* lns,
+                   void* dx, int R, int C, float* part, int grid,
+                   float* dls_dlb, cudaStream_t st) {
+  using BF = __nv_bfloat16;
+  cudaError_t err = with_width(C, [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+    if (x_bf16) {
+      bwd_ln_rows_kernel<NC, BF><<<grid, 32 * kRowWarps, 0, st>>>(
+          dn, static_cast<const BF*>(x), mu, inv, lns, static_cast<BF*>(dx),
+          R, C, part);
+    } else {
+      bwd_ln_rows_kernel<NC, float><<<grid, 32 * kRowWarps, 0, st>>>(
+          dn, static_cast<const float*>(x), mu, inv, lns,
+          static_cast<float*>(dx), R, C, part);
+    }
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  return sum_rows(part, dls_dlb, grid, 2 * C, st);
+}
+
+// e. out [M, N] = A^T B, A [R, M], B [R, N]: 128 x 256 tiles with four
+// stages, or 128 x 128 with three and two CTAs an SM (wgrad_wide); split
+// over R into ``ws`` (splits * M * N floats) when splits > 1.
+cudaError_t wgrad(const void* A, const void* B, float* out, float* ws,
+                  int R, int M, int N, int splits, cudaStream_t st) {
+  const StoreSplit epi{splits > 1 ? ws : out, M, N};
+  cudaError_t err =
+      wgrad_wide(N) ? sm90::gemm_mn<256, 4, 1>(A, B, M, N, R, splits, epi, st)
+                    : sm90::gemm_mn<128, 3, 2>(A, B, M, N, R, splits, epi, st);
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_rows(ws, out, splits, M * N, st);
+}
+
+}  // namespace
 }  // namespace cpt
 
-// Sizes the caller allocates: the grid of (a) (one partial row of 7C floats
-// per CTA) and the row split of (b) (a workspace of S * C * 4C floats when
-// S > 1).
-extern "C" int cpt_fused_mlp_bwd_plan(int R, int C, int x_bf16, int g_bf16,
-                                      int* grid_rows, int* splits) {
-  if (C % 32 != 0 || R <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cpt::with_types(x_bf16, g_bf16, [&](auto tx, auto tg) {
-      return cpt::rows_kernel_ready<decltype(tx), decltype(tg)>(C, &per_sm);
-    });
+// Sizes the caller allocates: the row kernels' grid (partial rows of C and
+// 2C floats a CTA) and the splits over R of dW1 and dW2r (a workspace of
+// max(splits) * 4 C^2 floats when one is above 1).
+extern "C" int cpt_fused_mlp_bwd_plan(int R, int C, int* grid_rows,
+                                      int* splits1, int* splits2) {
+  if (C % 32 != 0 || C > 1024 || R <= 0) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = cpt::sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int ntiles = (R + cpt::kBTM - 1) / cpt::kBTM;
-  *grid_rows = ntiles < per_sm * sms ? ntiles : per_sm * sms;
-  *splits = cpt::gemm_splits(R, 4 * C, C, sms);
+  *grid_rows = cpt::rows_grid(R, C, sms);
+  *splits1 = cpt::wgrad_splits(R, 4 * C, C, sms);
+  *splits2 = cpt::wgrad_splits(R, C, 4 * C, sms);
   return 0;
 }
 
+// The split over R of one weight-gradient product alone.
+extern "C" int cpt_mlp_wgrad_plan(int R, int M, int N, int* splits) {
+  if (R <= 0 || M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = cpt::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  *splits = cpt::wgrad_splits(R, M, N, sms);
+  return 0;
+}
+
+// K6: the five launches and the ordered sums. Scratch: mu, inv [R] f32;
+// nb, dyb, gb [R, C] bf16; ab, dhb [R, 4C] bf16; dn [R, C] f32; part_a
+// [grid_rows, C], part_b [ceil(R / 128), 4C], part_d [grid_rows, 2C] f32;
+// ws [max(splits1, splits2), 4C, C] f32 when either is above 1. Out: dx [R, C] (x's type), dw1
+// [4C, C], dw2r [C, 4C], vec [7C] = db1 | sg | dls | dlb (f32). w1 [4C, C],
+// w1t [C, 4C], w2t [4C, C] bf16; every bf16 operand 16-byte aligned.
 extern "C" int cpt_fused_mlp_bwd(
     const void* x, const void* g, void* dx, int x_bf16, int g_bf16, int R,
     int C, const float* lns, const float* lnb, const void* w1,
     const void* w1t, const void* w2t, const float* b1, const float* gamma,
-    float eps, void* nb, void* gb, void* ab, void* dhb, float* part,
-    int grid_rows, float* ws, int splits, float* dw1, float* dw2r,
-    float* vec, void* stream) {
-  using BF = __nv_bfloat16;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cpt::MlpBwdParams p;
-  p.x = x; p.g = g; p.dx = dx; p.R = R; p.C = C;
-  p.lns = lns; p.lnb = lnb;
-  p.w1 = static_cast<const BF*>(w1);
-  p.w1t = static_cast<const BF*>(w1t);
-  p.w2t = static_cast<const BF*>(w2t);
-  p.b1 = b1; p.gamma = gamma; p.eps = eps;
-  p.nb = static_cast<BF*>(nb); p.gb = static_cast<BF*>(gb);
-  p.ab = static_cast<BF*>(ab); p.dhb = static_cast<BF*>(dhb);
-  p.part = part;
-  // (a)
-  cudaError_t err = cpt::with_types(x_bf16, g_bf16, [&](auto tx, auto tg) {
-    using TX = decltype(tx);
-    using TG = decltype(tg);
-    cudaError_t e = cpt::rows_kernel_ready<TX, TG>(C, nullptr);
-    if (e != cudaSuccess) return e;
-    cpt::mlp_bwd_rows_kernel<TX, TG>
-        <<<grid_rows, cpt::kBThreads, cpt::rows_smem_bytes(C), st>>>(p);
-    return cudaGetLastError();
-  });
-  if (err != cudaSuccess) return (int)err;
-  // (b) dW1 [4C, C] = dh^T n;  dW2r [C, 4C] = g^T a
-  err = cpt::launch_gemm_tn(p.dhb, p.nb, dw1, ws, R, 4 * C, C, splits, st);
-  if (err != cudaSuccess) return (int)err;
-  err = cpt::launch_gemm_tn(p.gb, p.ab, dw2r, ws, R, C, 4 * C, splits, st);
-  if (err != cudaSuccess) return (int)err;
-  // the CTAs' partial rows, in order
-  cpt::sum_splits_kernel<<<(7 * C + 255) / 256, 256, 0, st>>>(
-      part, vec, grid_rows, 7 * C);
-  return (int)cudaGetLastError();
+    float eps, float* mu, float* inv, void* nb, void* dyb, void* gb,
+    void* ab, void* dhb, float* dn, float* part_a, float* part_b,
+    float* part_d, int grid_rows, float* ws, int splits1, int splits2,
+    float* dw1,
+    float* dw2r, float* vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cpt::prologue(x, x_bf16, g, g_bf16, R, C, lns, lnb,
+                                  gamma, eps, mu, inv, nb, dyb, gb, part_a,
+                                  grid_rows, vec + 4 * C, st);
+  if (err == cudaSuccess)
+    err = cpt::dual(nb, dyb, w1, w2t, b1, ab, dhb, part_b, R, C, vec, st);
+  if (err == cudaSuccess) err = cpt::dn_gemm(dhb, w1t, dn, R, C, st);
+  if (err == cudaSuccess)
+    err = cpt::ln_bwd(dn, x, x_bf16, mu, inv, lns, dx, R, C, part_d,
+                      grid_rows, vec + 5 * C, st);
+  if (err == cudaSuccess)
+    err = cpt::wgrad(dhb, nb, dw1, ws, R, 4 * C, C, splits1, st);
+  if (err == cudaSuccess)
+    err = cpt::wgrad(gb, ab, dw2r, ws, R, C, 4 * C, splits2, st);
+  return (int)err;
+}
+
+// K6's launches on their own (each with the ordered sum of its partial
+// rows), to hold each against its plain version.
+extern "C" int cpt_mlp_bwd_prologue(const void* x, int x_bf16, const void* g,
+                                    int g_bf16, int R, int C,
+                                    const float* lns, const float* lnb,
+                                    const float* gamma, float eps, float* mu,
+                                    float* inv, void* nb, void* dyb,
+                                    void* gb, float* part, int grid_rows,
+                                    float* sg, void* stream) {
+  return (int)cpt::prologue(x, x_bf16, g, g_bf16, R, C, lns, lnb, gamma,
+                            eps, mu, inv, nb, dyb, gb, part, grid_rows, sg,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cpt_mlp_bwd_dual(const void* nb, const void* dyb,
+                                const void* w1, const void* w2t,
+                                const float* b1, void* ab, void* dhb,
+                                float* part, int R, int C, float* db1,
+                                void* stream) {
+  if (C % 32 != 0) return (int)cudaErrorInvalidValue;
+  return (int)cpt::dual(nb, dyb, w1, w2t, b1, ab, dhb, part, R, C, db1,
+                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cpt_mlp_bwd_dn(const void* dhb, const void* w1t, float* dn,
+                              int R, int C, void* stream) {
+  if (C % 32 != 0) return (int)cudaErrorInvalidValue;
+  return (int)cpt::dn_gemm(dhb, w1t, dn, R, C,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cpt_mlp_bwd_ln(const float* dn, const void* x, int x_bf16,
+                              const float* mu, const float* inv,
+                              const float* lns, void* dx, int R, int C,
+                              float* part, int grid_rows, float* dls_dlb,
+                              void* stream) {
+  return (int)cpt::ln_bwd(dn, x, x_bf16, mu, inv, lns, dx, R, C, part,
+                          grid_rows, dls_dlb,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The MN-major GEMM core alone: out [M, N] f32 = A [R, M]^T . B [R, N].
+extern "C" int cpt_mlp_wgrad(const void* a, const void* b, float* out,
+                             float* ws, int R, int M, int N, int splits,
+                             void* stream) {
+  return (int)cpt::wgrad(a, b, out, ws, R, M, N, splits,
+                         static_cast<cudaStream_t>(stream));
 }

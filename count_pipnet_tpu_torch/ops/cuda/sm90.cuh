@@ -1,9 +1,15 @@
 // The port's Hopper GEMM core (sm_90a):
 //
-//   D[M, N] = A[M, K] . B[N, K]^T
+//   D[M, N] = A[M, K] . B[N, K]^T                          (gemm)
+//   D[M, N] = A[K, M]^T . B[K, N], split over K           (gemm_mn)
+//   D1 = A1 . B1^T and D2 = A2 . B2^T of one tile          (dual_gemm)
 //
-// A and B bf16, row-major with K contiguous (the torch layout of a Linear's
-// input and weight, so weights need no transpose), f32 sums in registers.
+// gemm: A and B bf16, row-major with K contiguous (the torch layout of a
+// Linear's input and weight, so weights need no transpose), f32 sums in
+// registers. gemm_mn takes both operands MN-major (M and N contiguous: the
+// activations of a weight gradient, summed over their rows) through wgmma's
+// transpose immediates and the MN-major descriptor; dual_gemm runs two
+// K-major products of the same shape in one CTA (below, at each kernel).
 // What the core does not own - bias, activation, scale, residual, the store
 // and its type - is an epilogue functor that receives the sums eight
 // adjacent columns at a time: epi(row, col, v) with v[i] the sum of column
@@ -170,6 +176,19 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// wgmma descriptor of an MN-major tile in the 128-byte swizzle, as the TMA
+// writes a [kBK rows of K, 64 columns of M or N] box: each K row is one
+// 128-byte row of 64 MN values, 8 K rows make a 1024-byte swizzle atom.
+// SBO 1024 bytes (the next 8 K rows), LBO ``lbo`` bytes (the next 64 MN
+// values: the next box), layout type 1 = 128-byte swizzle. A 16-deep K step
+// is 16 rows, 2048 bytes further on.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* tile,
+                                                  uint32_t lbo) {
+  const uint64_t a = smem_addr(tile);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -196,6 +215,26 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
                                            uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_bf16<96>(float (&d)[48], uint64_t a,
@@ -247,6 +286,90 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// The same with both operands MN-major (wgmma's transpose immediates set):
+// A[64 x 16] and B[N x 16] stored with M and N contiguous; N = 128, 256.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_mn(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<128>(float (&d)[64],
+                                                   uint64_t a, uint64_t b,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<256>(float (&d)[128],
+                                                   uint64_t a, uint64_t b,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(acc));
 }
 
@@ -315,9 +438,10 @@ __host__ __device__ constexpr int smem_bytes() {
   return (ring > tile ? ring : tile) + 16 * STAGES + 1024;
 }
 
-// The consumer warpgroups of gemm_kernel: warpgroup wg owns rows
-// [64 wg, 64 wg + 64) of the tile.
-template <int BN, int STAGES, typename Epi>
+// The consumer warpgroups of gemm_kernel (MN: of gemm_mn_kernel, whose
+// stages hold MN-major tiles): warpgroup wg owns rows [64 wg, 64 wg + 64)
+// of the tile.
+template <int BN, int STAGES, typename Epi, bool MN = false>
 __device__ __forceinline__ void consume(unsigned char* sa, unsigned char* sb,
                                         uint64_t* full, uint64_t* empty,
                                         int m0, int n0, int M, int N,
@@ -330,13 +454,26 @@ __device__ __forceinline__ void consume(unsigned char* sa, unsigned char* sb,
   for (int k = 0; k < steps; ++k) {
     const int s = k % STAGES;
     mbar_wait(full + s, (k / STAGES) & 1);
-    const uint64_t da = desc_sw128(sa + s * kA + wg * 64 * kBK * 2);
-    const uint64_t db = desc_sw128(sb + s * kB);
-    fence_regs(d);
-    wgmma_fence();
+    if constexpr (MN) {
+      // warpgroup wg's rows are the A stage's box wg; B's boxes of 64
+      // columns lie kBK * 128 bytes apart
+      const uint64_t da =
+          desc_sw128_mn(sa + s * kA + wg * 64 * kBK * 2, kBK * 128);
+      const uint64_t db = desc_sw128_mn(sb + s * kB, kBK * 128);
+      fence_regs(d);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_bf16<BN>(d, da + 2 * kk, db + 2 * kk, 1);  // +32 bytes a step
+      for (int kk = 0; kk < kBK / 16; ++kk)  // +16 rows, 2048 bytes a step
+        wgmma_bf16_mn<BN>(d, da + 128 * kk, db + 128 * kk, 1);
+    } else {
+      const uint64_t da = desc_sw128(sa + s * kA + wg * 64 * kBK * 2);
+      const uint64_t db = desc_sw128(sb + s * kB);
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_bf16<BN>(d, da + 2 * kk, db + 2 * kk, 1);  // +32 bytes a step
+    }
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's wgmma are done: release it
     fence_regs(d);
@@ -437,6 +574,223 @@ cudaError_t gemm(const void* A, const void* B, int M, int N, int K,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(map_a, map_b, M, N, K, epi);
+  return cudaGetLastError();
+}
+
+// The raw f32 sums, [M, N] row-major at ``d`` (an epilogue for checks and
+// for products whose elementwise work runs elsewhere). In an unnamed
+// namespace, as every epilogue is, so that each source file's kernels
+// built on it are its own.
+namespace {
+struct StoreF32 {
+  float* d;
+  int N;
+  __device__ __forceinline__ void operator()(int r, int c,
+                                             const float (&v)[8]) const {
+    float4* p = reinterpret_cast<float4*>(d + (size_t)r * N + c);
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+}  // namespace
+
+// ---- MN-major operands: D = A^T . B, summed over the rows ----
+
+// D[M, N] = A[K, M]^T . B[K, N], A and B row-major with M and N contiguous
+// (MN-major): a weight gradient, summed over K = the activations' rows. Each
+// stage holds the A tile as two TMA boxes of [kBK rows, 64 columns], one a
+// warpgroup, and the B tile as BN / 64 such boxes, 128-byte swizzled; wgmma
+// reads both transposed. Grid z splits the K steps: split z sums steps
+// [z per, min((z + 1) per, steps)) and hands its tile to epi.split(z).
+template <int BN, int STAGES, int MINB, typename Epi>
+__global__ void __launch_bounds__(kThreads, MINB)
+    gemm_mn_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, int M, int N,
+                   int steps_total, int per, const Epi epi) {
+  static_assert(BN % 64 == 0, "B stages are boxes of 64 columns");
+  constexpr int kA = kBM * kBK * 2, kB = BN * kBK * 2;  // stage bytes
+  constexpr int kBox = 64 * kBK * 2;                    // one box
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sa = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sb = sa + STAGES * kA;
+  constexpr int kRing = STAGES * (kA + kB);
+  constexpr int kTile = kBM * stage_stride<BN>() * 4;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(sa + (kRing > kTile ? kRing : kTile));
+  uint64_t* empty = full + STAGES;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.z * per;
+  const int left = steps_total - k0;
+  const int steps = left < per ? (left > 0 ? left : 0) : per;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    if (threadIdx.x % 32 == 0) {
+      for (int k = 0; k < steps; ++k) {
+        const int s = k % STAGES;
+        const int kr = (k0 + k) * kBK;  // the step's first row
+        mbar_wait(empty + s, ((k / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, kA + kB);
+        tma_load(sa + s * kA, &map_a, full + s, m0, kr);
+        tma_load(sa + s * kA + kBox, &map_a, full + s, m0 + 64, kr);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(sb + s * kB + j * kBox, &map_b, full + s, n0 + 64 * j,
+                   kr);
+      }
+    }
+    return;
+  }
+  consume<BN, STAGES, decltype(epi.split(0)), true>(
+      sa, sb, full, empty, m0, n0, M, N, steps, epi.split(blockIdx.z));
+}
+
+// Launch D = A^T . B through epi.split(z) on ``stream``: A [K, M] and
+// B [K, N] bf16 row-major, 16-byte aligned, M % 8 == 0, N % 8 == 0; the
+// ceil(K / kBK) steps in ``splits`` parts of ``per`` steps (the last may
+// be shorter, none empty).
+template <int BN, int STAGES, int MINB, typename Epi>
+cudaError_t gemm_mn(const void* A, const void* B, int M, int N, int K,
+                    int splits, const Epi& epi, cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || M % 8 || N % 8)
+    return cudaErrorInvalidValue;
+  const int steps = (K + kBK - 1) / kBK;
+  const int per = (steps + splits - 1) / splits;
+  if ((splits - 1) * per >= steps) return cudaErrorInvalidValue;
+  const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM, splits);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = make_map(&map_a, A, K, M, kBK);
+  if (err != cudaSuccess) return err;
+  err = make_map(&map_b, B, K, N, kBK);
+  if (err != cudaSuccess) return err;
+  auto kernel = gemm_mn_kernel<BN, STAGES, MINB, Epi>;
+  constexpr int smem = smem_bytes<BN, STAGES>();
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(map_a, map_b, M, N, steps, per,
+                                           epi);
+  return cudaGetLastError();
+}
+
+// ---- two products of one tile ----
+
+// D1 = A1 . B1^T and D2 = A2 . B2^T, both [M, N] with K-major operands of
+// the same K, computed by one CTA a [kBM, BN] tile of both: each stage
+// holds the four TMA tiles, each consumer thread two accumulators.
+// ``epi(d1, d2, smem, m0, n0, M, N)`` is called by every consumer thread
+// once the ring is free, with the thread's fragments of both (the layout of
+// wgmma_bf16), and may use Epi::smem_bytes<BN>() bytes at ``smem``.
+template <int BN, int STAGES, int MINB, typename Epi>
+__global__ void __launch_bounds__(kThreads, MINB)
+    dual_gemm_kernel(const __grid_constant__ CUtensorMap map_a1,
+                     const __grid_constant__ CUtensorMap map_b1,
+                     const __grid_constant__ CUtensorMap map_a2,
+                     const __grid_constant__ CUtensorMap map_b2, int M,
+                     int N, int K, const Epi epi) {
+  constexpr int kA = kBM * kBK * 2, kB = BN * kBK * 2;
+  constexpr int kStage = 2 * (kA + kB);  // A1, A2, B1, B2
+  constexpr int kRing = STAGES * kStage;
+  static_assert(Epi::template smem_bytes<BN>() <= kRing,
+                "the epilogue's tiles must fit in the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing);
+  uint64_t* empty = full + STAGES;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
+  const int steps = (K + kBK - 1) / kBK;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    if (threadIdx.x % 32 == 0) {
+      for (int k = 0; k < steps; ++k) {
+        const int s = k % STAGES;
+        unsigned char* st = ring + s * kStage;
+        mbar_wait(empty + s, ((k / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, kStage);
+        tma_load(st, &map_a1, full + s, k * kBK, m0);
+        tma_load(st + kA, &map_a2, full + s, k * kBK, m0);
+        tma_load(st + 2 * kA, &map_b1, full + s, k * kBK, n0);
+        tma_load(st + 2 * kA + kB, &map_b2, full + s, k * kBK, n0);
+      }
+    }
+    return;
+  }
+  const int wg = warp / 4;
+  float d1[BN / 2], d2[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d1[i] = d2[i] = 0.0f;
+  for (int k = 0; k < steps; ++k) {
+    const int s = k % STAGES;
+    const unsigned char* st = ring + s * kStage;
+    mbar_wait(full + s, (k / STAGES) & 1);
+    const uint64_t da1 = desc_sw128(st + wg * 64 * kBK * 2);
+    const uint64_t da2 = desc_sw128(st + kA + wg * 64 * kBK * 2);
+    const uint64_t db1 = desc_sw128(st + 2 * kA);
+    const uint64_t db2 = desc_sw128(st + 2 * kA + kB);
+    fence_regs(d1);
+    fence_regs(d2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      wgmma_bf16<BN>(d1, da1 + 2 * kk, db1 + 2 * kk, 1);
+      wgmma_bf16<BN>(d2, da2 + 2 * kk, db2 + 2 * kk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(d1);
+    fence_regs(d2);
+    if (k > 0 && threadIdx.x % 32 == 0) mbar_arrive(empty + (k - 1) % STAGES);
+  }
+  wgmma_wait<0>();
+  fence_regs(d1);
+  fence_regs(d2);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  epi(d1, d2, ring, m0, n0, M, N);
+}
+
+// Launch the two products through ``epi`` on ``stream``: A1, A2 [M, K],
+// B1, B2 [N, K] bf16, 16-byte aligned, K % 8 == 0, N % BN == 0.
+template <int BN, int STAGES, int MINB, typename Epi>
+cudaError_t dual_gemm(const void* A1, const void* B1, const void* A2,
+                      const void* B2, int M, int N, int K, const Epi& epi,
+                      cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % BN) return cudaErrorInvalidValue;
+  const dim3 grid(N / BN, (M + kBM - 1) / kBM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  CUtensorMap ma1, mb1, ma2, mb2;
+  cudaError_t err = make_map(&ma1, A1, M, K, kBM);
+  if (err == cudaSuccess) err = make_map(&ma2, A2, M, K, kBM);
+  if (err == cudaSuccess) err = make_map(&mb1, B1, N, K, BN);
+  if (err == cudaSuccess) err = make_map(&mb2, B2, N, K, BN);
+  if (err != cudaSuccess) return err;
+  auto kernel = dual_gemm_kernel<BN, STAGES, MINB, Epi>;
+  constexpr int smem = STAGES * 4 * (kBM + BN) * kBK + 16 * STAGES + 1024;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(ma1, mb1, ma2, mb2, M, N, K, epi);
   return cudaGetLastError();
 }
 

@@ -30,7 +30,7 @@ tensor to the plain version.
 import torch
 
 from . import cuda as _cuda
-from .fused_mlp_bwd import bf16_round, fused_mlp_bwd
+from .fused_mlp_bwd import _check, _f32, bf16_round, fused_mlp_bwd
 
 __all__ = ["fused_ln_mlp_residual", "fused_ln_mlp_residual_plain",
            "ln_rows", "ln_rows_plain", "mlp_up_gelu", "mlp_up_gelu_plain",
@@ -74,18 +74,6 @@ def fused_ln_mlp_residual_plain(x, residual, ln_scale, ln_bias, w1, b1, w2,
     n = ln_rows_plain(x, ln_scale, ln_bias, eps)
     return mlp_down_residual_plain(mlp_up_gelu_plain(n, w1, b1), residual,
                                    w2, b2, gamma)
-
-
-def _f32(t):
-    return t.detach().to(torch.float32).reshape(-1).contiguous()
-
-
-def _check(t, c, what, dtypes=(torch.float32, _BF)):
-    if t.shape[-1] != c:
-        raise ValueError(f"{what}: last dimension {t.shape[-1]} != C={c}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{what} takes {', '.join(map(str, dtypes))}, not "
-                        f"{t.dtype}")
 
 
 def _rows(t, c, what, dtypes=(torch.float32, _BF)):
