@@ -16,6 +16,7 @@ package on machines without ``nvcc``.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +25,7 @@ from pathlib import Path
 
 __all__ = ["library", "check", "ptr", "stream_ptr", "launch_counts",
            "launch_widths", "count_launch", "reset_launch_counts",
-           "build_info"]
+           "build_info", "ptxas_entries"]
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
@@ -39,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # its kernel, and nowhere else.
 # Kernel A in its dynamic int8 mode counts as "fused_block_int8_dyn", and
 # with bf16 depthwise taps as "fused_block_dwbf16" (bf16 and int8-static
-# GEMMs) or "fused_block_int8_dyn_dwbf16".
+# GEMMs) or "fused_block_int8_dyn_dwbf16"; a call of its bf16 or
+# int8-static mode (three launches) counts once.
 launch_counts = {"fused_block": 0, "gumbel_hard_counts": 0,
                  "fused_block_gumbel_counts": 0, "fused_ln_mlp_residual": 0,
                  "fused_mlp_bwd": 0, "dwconv7": 0, "dwconv7_wgrad": 0,
@@ -66,8 +68,19 @@ _BLOCK_ARGS = [_I, _I, _I, _I, _I, _I,            # x_bf16 mode B H W C
                _P, _F]                            # g eps
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # x, out, dw_bf16, x_bf16, mode, B, H, W, C, ..., stream
-    "cpt_fused_block": [_P, _P, _I] + _BLOCK_ARGS + [_P],
+    # x, out, dw_bf16, x_bf16, mode, B, H, W, C, ..., n (scratch),
+    # h (scratch), stream
+    "cpt_fused_block": [_P, _P, _I] + _BLOCK_ARGS + [_P, _P, _P],
+    # kernel A's stages: x, n, dw_bf16, x_bf16, int8, B, H, W, C, dwk, dwb,
+    # lns, lnb, i1, eps, stream
+    "cpt_block_prologue": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _F, _P],
+    # n, w1, s1, b1, i2, h, int8, R, C, tile, stream
+    "cpt_block_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # h, w2, s2, b2, g, x, x_bf16, out, int8, R, C, tile, stream
+    "cpt_block_down": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # the GEMM core's s8 mode: a, b, d (s32), M, N, K, stream
+    "cpt_sm90_gemm_s8": [_P, _P, _P, _I, _I, _I, _P],
     # logits, x_bf16, noise, counts, B, HW, C, seed, stream
     "cpt_gumbel_hard_counts": [_P, _I, _P, _P, _I, _I, _I, _U64, _P],
     # x, x_bf16, int8, B, H, W, C, ..., noise, counts, seed, stream
@@ -117,6 +130,36 @@ _SIGNATURES = {
     # x, x_bf16, wq, ws, bias, out, out_bf16, M, K, N, stream
     "cpt_int8_quant_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
+
+
+def ptxas_entries(log):
+    """nvcc's resource report (``-Xptxas=-v``) of a build log, by kernel
+    entry: {C++ name: (registers, stack bytes, spill stores, spill loads)}.
+    The names are demangled with ``c++filt`` where the machine has it (else
+    they stay mangled); a mangled name of an entry in an unnamed namespace
+    differs from build to build."""
+    out, name, frame = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, frame = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)),) + frame
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return out
+    return dict(zip(names, out.values()))
 
 
 def reset_launch_counts():

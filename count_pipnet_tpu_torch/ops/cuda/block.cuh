@@ -1,16 +1,28 @@
-// One whole ConvNeXt block on compact NHWC planes, for serving:
+// The ConvNeXt block's device code shared by the port's kernels:
 //
 //   dwconv7x7 + bias -> LayerNorm -> pw1 (C -> 4C) -> tanh-GELU
 //     -> pw2 (4C -> C) -> * layer_scale -> + residual
 //
-// Replaces the TPU kernels fused_block_apply_padded and fused_block_apply
-// (count_pipnet_tpu/ops/pallas/fused_block.py:358, :499) and, with HEAD, the
-// block part of fused_block_gumbel_counts (ops/pallas/gumbel_head.py:268).
+// - the depthwise window walk (dw7_walk, dw7_dot), which kernel A's
+//   prologue (fused_block.cu), K7 (dwconv.cu) and K8 (dwconv_wgrad.cu) use;
+// - the arithmetic of each step as __device__ functions with their
+//   floating-point contraction pinned (ln_stats, ln_value, quant_scaled,
+//   up_static, block_out), so that every kernel that computes a step
+//   computes the same bits: kernel A's three launches (fused_block.cu) and
+//   the one-kernel body below, which kernel C runs;
+// - that one-kernel body, fused_block_kernel, for two callers: kernel C
+//   (HEAD: the block of count_pipnet_tpu/ops/pallas/gumbel_head.py:
+//   fused_block_gumbel_counts, :268, with the noisy-argmax histogram as its
+//   epilogue, so the last plane is never written), and kernel A's dynamic
+//   int8 mode (the TPU's _kernel_int8 and _kernel_int8_pad,
+//   ops/pallas/fused_block.py:250, :313). Kernel A's bf16 and int8-static
+//   modes are three launches on the TMA-fed wgmma core (fused_block.cu);
+//   these two keep the one-kernel body because each needs a whole row at
+//   once (the argmax over C; the dynamic scale over 4C), more than one
+//   GEMM tile of the new design holds.
 //
-// What bounds it on Hopper: the two pointwise GEMMs (16 * H*W * C^2 MACs per
-// image and block) are compute; the plane itself is read once and written
-// once. So, as on the TPU, the depthwise output and the 4C-wide hidden
-// activation never leave the SM:
+// The body keeps the depthwise output and the 4C-wide hidden activation on
+// the SM:
 //
 //   1. A CTA owns TM patch rows. It computes dw7x7 for them (halo by bounds
 //      checks; f32 taps, or with DWBF the TPU's bf16 taps, on channel pairs
@@ -21,22 +33,20 @@
 //      GELU -> cast / quantize -> accumulate pw2 into a [TM, C] shared
 //      accumulator (int32 in the int8 modes: the static scales are per
 //      hidden channel, so chunking is exact).
-//   3. Epilogue: dequantize, * gamma, + residual; store (A) or, with HEAD,
-//      the noisy argmax histogram of each row (C) - the plane is not stored.
+//   3. Epilogue: dequantize, * gamma, + residual; store (dynamic mode) or,
+//      with HEAD, the noisy argmax histogram of each row.
 //
-// The dynamic int8 mode (Q = kQDyn, the TPU's _kernel_int8 and
-// _kernel_int8_pad, fused_block.py:250, :313) quantizes the GELU output
-// with one scale per row over all 4C hidden values, which chunk-wise
-// quantization cannot know before the last chunk. So step 2 runs twice:
-// pass 1 computes each pw1 chunk, its GELU and the running row abs-max
-// only; pass 2 recomputes each chunk (the same arithmetic, the same values),
-// quantizes it with the whole row's scale and accumulates pw2. The pw1
-// GEMM runs twice: 1.5 times the static mode's GEMM work. (A whole
-// [TM, 4C] GELU tile would be 393 KB in f32 at C = 768: it does not fit.)
+// The dynamic int8 mode quantizes the GELU output with one scale per row
+// over all 4C hidden values, which chunk-wise quantization cannot know
+// before the last chunk. So step 2 runs twice: pass 1 computes each pw1
+// chunk, its GELU and the running row abs-max only; pass 2 recomputes each
+// chunk (the same arithmetic, the same values), quantizes it with the whole
+// row's scale and accumulates pw2. The pw1 GEMM runs twice: 1.5 times the
+// static mode's GEMM work. (A whole [TM, 4C] GELU tile would be 393 KB in
+// f32 at C = 768: it does not fit.)
 //
-// The GEMMs run on the tensor cores through mma.sync (m16n8k16 bf16,
-// m16n8k32 s8) with the weights read from L2 as [out, in] rows. The
-// TMA-fed wgmma core of sm90.cuh (K5's GEMMs) is not used here yet.
+// The body's GEMMs run on the tensor cores through mma.sync (m16n8k16
+// bf16, m16n8k32 s8) with the weights read from L2 as [out, in] rows.
 #pragma once
 
 #include <type_traits>
@@ -55,7 +65,7 @@ enum : int { kQBf16 = 0, kQStatic = 1, kQDyn = 2 };
 
 struct BlockParams {
   const void* x;    // [B*H*W, C] T
-  void* out;        // [B*H*W, C] T (kernel A)
+  void* out;        // [B*H*W, C] T (dynamic mode)
   int B, H, W, C;
   const float* dwk;  // [49, C], tap (dy, dx) at row dy * 7 + dx
   const float* dwb;  // [C]
@@ -79,6 +89,53 @@ struct BlockParams {
 __device__ __forceinline__ int8_t quant_static(float v) {
   // round(clip(v, -127, 127)), half to even like jnp.round
   return (int8_t)__float2int_rn(fminf(fmaxf(v, -127.0f), 127.0f));
+}
+
+// The steps' arithmetic with its floating-point contraction pinned (the
+// __f*_rn intrinsics are never fused or reordered by the compiler); the
+// GEMM epilogues round each operation on its own, as the plain version's
+// PyTorch operations do.
+
+// Mean and 1 / std of the C values of one row at ``d`` (shared memory), by
+// one whole warp: lane-strided sums, a butterfly, two passes; every lane
+// gets both.
+__device__ __forceinline__ float2 ln_stats(const float* d, int C, float eps,
+                                           int lane) {
+  float s = 0.0f;
+  for (int c = lane; c < C; c += 32) s = __fadd_rn(s, d[c]);
+  const float mu = __fdiv_rn(warp_sum(s), (float)C);
+  float v = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float t = __fsub_rn(d[c], mu);
+    v = __fmaf_rn(t, t, v);
+  }
+  return make_float2(mu, rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(v), (float)C),
+                                          eps)));
+}
+
+// The LayerNorm output of one value: (d - mu) * rs * scale + bias.
+__device__ __forceinline__ float ln_value(float d, float2 st, float scale,
+                                          float bias) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(d, st.x), st.y), scale, bias);
+}
+
+// The static int8 operand: round(clip(v * 127 / amax)).
+__device__ __forceinline__ int8_t quant_scaled(float v, float inv) {
+  return quant_static(__fmul_rn(v, inv));
+}
+
+// GEMM 1's static int8 epilogue: the GELU output of one s32 sum, quantized.
+__device__ __forceinline__ int8_t up_static(int acc, float s1, float b1,
+                                           float i2) {
+  return quant_scaled(gelu_tanh(__fadd_rn(__fmul_rn((float)acc, s1), b1)),
+                      i2);
+}
+
+// The block output of one GEMM 2 sum ``v``: x + (v * s + b) * g (s = 1 for
+// f32 sums).
+__device__ __forceinline__ float block_out(float x, float v, float s,
+                                           float b, float g) {
+  return __fadd_rn(x, __fmul_rn(__fadd_rn(__fmul_rn(v, s), b), g));
 }
 
 // Fragment loads shared by both mma shapes: in bytes, the A registers of
@@ -210,7 +267,9 @@ __device__ __forceinline__ void dw7_walk(const T* x, int H, int W, int C,
 }
 
 // bias + the 49 taps of one window, summed by columns (the order kernel A
-// has always used: its readings do not move with the sharing).
+// has always used: its readings do not move with the sharing); each column
+// as fused multiply-adds in dy order, pinned so that every kernel that
+// calls it computes the same bits.
 __device__ __forceinline__ float dw7_dot(const float (&win)[7][7],
                                          const float (&wk)[49], float bias) {
   float d = bias;
@@ -218,8 +277,9 @@ __device__ __forceinline__ float dw7_dot(const float (&win)[7][7],
   for (int dx = 0; dx < 7; ++dx) {
     float vs = 0.0f;
 #pragma unroll
-    for (int dy = 0; dy < 7; ++dy) vs += win[dy][dx] * wk[dy * 7 + dx];
-    d += vs;
+    for (int dy = 0; dy < 7; ++dy)
+      vs = __fmaf_rn(win[dy][dx], wk[dy * 7 + dx], vs);
+    d = __fadd_rn(d, vs);
   }
   return d;
 }
@@ -257,45 +317,22 @@ __host__ __device__ inline size_t block_smem_bytes(int C) {
          + (Q == kQDyn ? (size_t)3 * kTM * 4 : 0);  // row scales, abs-max
 }
 
-template <typename T, int Q, bool HEAD, bool DWBF = false>
-__global__ void __launch_bounds__(kThreads)
-    fused_block_kernel(const BlockParams p) {
-  constexpr bool INT8 = Q != kQBf16;
-  constexpr bool DYN = Q == kQDyn;
-  using M = Mode<INT8>;
-  using E = typename M::E;
-  using Acc = typename M::Acc;
-  const int C = p.C, HD = 4 * C, HW = p.H * p.W, total = p.B * HW;
-  const int row0 = blockIdx.x * kTM;
-  const int as = C + 8;          // accumulator row stride (4-byte words)
-  const int xs = C + M::kPad;    // LN-output row stride (elements)
-  const int hs = kHC + M::kPad;  // hidden row stride (elements)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g8 = lane >> 2, tq = lane & 3;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* accf = reinterpret_cast<float*>(smem);
-  Acc* acc = reinterpret_cast<Acc*>(smem);
-  E* xn = reinterpret_cast<E*>(smem + (size_t)kTM * as * 4);
-  E* hb = xn + kTM * xs;
-  // DYN: per-row scales of the LN output (nsc) and of the GELU output
-  // (asc), and the GELU row abs-max as float bits (non-negative floats
-  // order as their int bits, so atomicMax takes the max in any order)
-  float* nsc = reinterpret_cast<float*>(hb + kTM * hs);
-  float* asc = nsc + kTM;
-  int* amax_bits = reinterpret_cast<int*>(asc + kTM);
+// Step 1a of a CTA that owns the kTM rows from ``row0``: depthwise 7x7 +
+// bias into ``accf`` ([kTM, C] f32, row stride ``as``), zeros past the
+// plane's end. A thread owns one channel (DWBF: a channel pair, in bf16x2)
+// and a run of the CTA's rows (dw7_walk: the 7x7 window and the 49 taps in
+// registers). Neighbouring threads read neighbouring channels (coalesced).
+// Below 256 channels (pairs) the rows are split into segs runs so more
+// threads work. The f32 and bf16 tap branches stay apart: written as one
+// loop over 1 or 2 channels a thread, the f32-tap instantiations rose from
+// 127-128 to 130-162 registers and ran up to 1.4 times slower (H100).
+// Kernel A's prologue (fused_block.cu) and the body below both run it.
+template <typename T, bool DWBF>
+__device__ __forceinline__ void block_dw_rows(const BlockParams& p,
+                                              float* accf, int as,
+                                              int row0) {
+  const int C = p.C, total = p.B * p.H * p.W, tid = threadIdx.x;
   const T* x = static_cast<const T*>(p.x);
-  const unsigned char* w1 = static_cast<const unsigned char*>(p.w1);
-  const unsigned char* w2 = static_cast<const unsigned char*>(p.w2);
-
-  // 1a. depthwise 7x7 + bias into the (f32) accumulator buffer. A thread
-  // owns one channel (DWBF: a channel pair, in bf16x2) and a run of the
-  // CTA's rows (dw7_walk: the 7x7 window and the 49 taps in registers).
-  // Neighbouring threads read neighbouring channels (coalesced). Below 256
-  // channels (pairs) the rows are split into segs runs so more threads
-  // work. The f32 and bf16 tap branches stay apart: written as one loop
-  // over 1 or 2 channels a thread, the f32-tap instantiations rose from
-  // 127-128 to 130-162 registers and ran up to 1.4 times slower (H100).
   if constexpr (DWBF) {
     const int C2 = C / 2;
     int segs = 1;  // a power of two, so that it divides kTM
@@ -336,26 +373,52 @@ __global__ void __launch_bounds__(kThreads)
           [&](int i) { accf[(r0 + i) * as + c] = 0.0f; });
     }
   }
+}
+
+template <typename T, int Q, bool HEAD, bool DWBF = false>
+__global__ void __launch_bounds__(kThreads)
+    fused_block_kernel(const BlockParams p) {
+  constexpr bool INT8 = Q != kQBf16;
+  constexpr bool DYN = Q == kQDyn;
+  using M = Mode<INT8>;
+  using E = typename M::E;
+  using Acc = typename M::Acc;
+  const int C = p.C, HD = 4 * C, HW = p.H * p.W, total = p.B * HW;
+  const int row0 = blockIdx.x * kTM;
+  const int as = C + 8;          // accumulator row stride (4-byte words)
+  const int xs = C + M::kPad;    // LN-output row stride (elements)
+  const int hs = kHC + M::kPad;  // hidden row stride (elements)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, tq = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* accf = reinterpret_cast<float*>(smem);
+  Acc* acc = reinterpret_cast<Acc*>(smem);
+  E* xn = reinterpret_cast<E*>(smem + (size_t)kTM * as * 4);
+  E* hb = xn + kTM * xs;
+  // DYN: per-row scales of the LN output (nsc) and of the GELU output
+  // (asc), and the GELU row abs-max as float bits (non-negative floats
+  // order as their int bits, so atomicMax takes the max in any order)
+  float* nsc = reinterpret_cast<float*>(hb + kTM * hs);
+  float* asc = nsc + kTM;
+  int* amax_bits = reinterpret_cast<int*>(asc + kTM);
+  const T* x = static_cast<const T*>(p.x);
+  const unsigned char* w1 = static_cast<const unsigned char*>(p.w1);
+  const unsigned char* w2 = static_cast<const unsigned char*>(p.w2);
+
+  block_dw_rows<T, DWBF>(p, accf, as, row0);
   __syncthreads();
 
   // 1b. LayerNorm per row (one warp a row), cast / quantize into xn
   for (int r = warp; r < kTM; r += kThreads / 32) {
     const float* d = accf + r * as;
-    float s = 0.0f;
-    for (int c = lane; c < C; c += 32) s += d[c];
-    const float mu = warp_sum(s) / C;
-    float v = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float t = d[c] - mu;
-      v += t * t;
-    }
-    const float rs = rsqrtf(warp_sum(v) / C + p.eps);
+    const float2 st = ln_stats(d, C, p.eps, lane);
     if constexpr (DYN) {
       // the row's LN output in place of its depthwise output, then its
       // abs-max, then the row quantized with its own scale
       float m = 0.0f;
       for (int c = lane; c < C; c += 32) {
-        const float n = (d[c] - mu) * rs * p.lns[c] + p.lnb[c];
+        const float n = ln_value(d[c], st, p.lns[c], p.lnb[c]);
         accf[r * as + c] = n;
         m = fmaxf(m, fabsf(n));
       }
@@ -369,9 +432,9 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     for (int c = lane; c < C; c += 32) {
-      const float n = (d[c] - mu) * rs * p.lns[c] + p.lnb[c];
+      const float n = ln_value(d[c], st, p.lns[c], p.lnb[c]);
       if constexpr (INT8) {
-        xn[r * xs + c] = quant_static(n * p.i1[c]);
+        xn[r * xs + c] = quant_scaled(n, p.i1[c]);
       } else {
         xn[r * xs + c] = __float2bfloat16_rn(n);
       }
@@ -434,25 +497,20 @@ __global__ void __launch_bounds__(kThreads)
             const int r = mt * 16 + g8 + (e >> 1) * 8;
             const int jl = (nb + t) * 8 + tq * 2 + (e & 1);
             const int j = j0 + jl;
-            float h;
             if constexpr (DYN) {
-              h = (float)c4[t][e] * nsc[r] * p.s1[j] + p.b1[j];
-            } else if constexpr (INT8) {
-              h = (float)c4[t][e] * p.s1[j] + p.b1[j];
-            } else {
-              h = c4[t][e] + p.b1[j];
-            }
-            h = gelu_tanh(h);
-            if constexpr (DYN) {
+              const float h = gelu_tanh(
+                  (float)c4[t][e] * nsc[r] * p.s1[j] + p.b1[j]);
               if (scan) {
                 gmax[e >> 1] = fmaxf(gmax[e >> 1], fabsf(h));
               } else {
                 hb[r * hs + jl] = quant_row(h, asc[r]);
               }
             } else if constexpr (INT8) {
-              hb[r * hs + jl] = quant_static(h * p.i2[j]);
+              hb[r * hs + jl] = up_static(c4[t][e], p.s1[j], p.b1[j],
+                                          p.i2[j]);
             } else {
-              hb[r * hs + jl] = __float2bfloat16_rn(h);
+              hb[r * hs + jl] =
+                  __float2bfloat16_rn(gelu_tanh(c4[t][e] + p.b1[j]));
             }
           }
       }
@@ -485,14 +543,16 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // 3. epilogue
-  auto branch = [&](int r, int c) -> float {
+  // 3. epilogue: the block output of row r, channel c, from x's value xv
+  // (the head's as kernel A's GEMM 2 epilogue computes it: block_out)
+  auto out_val = [&](float xv, int r, int c) -> float {
     if constexpr (DYN) {
-      return (float)acc[r * as + c] * asc[r] * p.s2[c] + p.b2[c];
+      return xv + ((float)acc[r * as + c] * asc[r] * p.s2[c] + p.b2[c]) *
+                      p.g[c];
     } else if constexpr (INT8) {
-      return (float)acc[r * as + c] * p.s2[c] + p.b2[c];
+      return block_out(xv, (float)acc[r * as + c], p.s2[c], p.b2[c], p.g[c]);
     } else {
-      return acc[r * as + c] + p.b2[c];
+      return block_out(xv, acc[r * as + c], 1.0f, p.b2[c], p.g[c]);
     }
   };
   if constexpr (!HEAD) {
@@ -505,7 +565,7 @@ __global__ void __launch_bounds__(kThreads)
       const int r = idx / C, c = idx - r * C, row = row0 + r;
       if (row >= total) continue;
       const size_t o = (size_t)row * C + c;
-      store_as(out + o, to_f32(res[o]) + branch(r, c) * p.g[c]);
+      store_as(out + o, out_val(to_f32(res[o]), r, c));
     }
   } else {
     for (int r = warp; r < kTM; r += kThreads / 32) {
@@ -514,7 +574,7 @@ __global__ void __launch_bounds__(kThreads)
       const int b = row / HW, patch = row - b * HW;
       const T* xr = x + (size_t)row * C;
       const int win = noisy_argmax_row(
-          [&](int c) { return to_f32(xr[c]) + branch(r, c) * p.g[c]; }, C,
+          [&](int c) { return out_val(to_f32(xr[c]), r, c); }, C,
           p.noise ? p.noise + (size_t)row * C : nullptr, p.key,
           (uint32_t)patch, (uint32_t)b, lane);
       if (lane == 0) atomicAdd(p.counts + (size_t)b * C + win, 1.0f);
@@ -522,13 +582,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Host side: pick the instantiation and launch on ``stream``. ``mode`` is
-// kQBf16, kQStatic or kQDyn; the head (HEAD, kernel C) carries the first
-// two, as the TPU's fused head does. DWBF (kernel A only): bf16 taps.
+// Host side: pick the instantiation and launch on ``stream``. Kernel C
+// (HEAD) takes ``mode`` kQBf16 or kQStatic, as the TPU's fused head does;
+// kernel A's body (!HEAD) kQDyn only, with DWBF for bf16 taps.
 template <bool HEAD, bool DWBF = false>
 inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
                                       int mode, cudaStream_t stream) {
-  if (p.C % 32 != 0 || mode < kQBf16 || mode > (HEAD ? kQStatic : kQDyn))
+  if (p.C % 32 != 0 || (HEAD ? mode != kQBf16 && mode != kQStatic
+                             : mode != kQDyn))
     return cudaErrorInvalidValue;
   const int total = p.B * p.H * p.W;
   const dim3 grid((total + kTM - 1) / kTM);
@@ -544,19 +605,18 @@ inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
   };
   using BF = __nv_bfloat16;
   if constexpr (!HEAD) {
-    if (mode == kQDyn) {
-      return x_bf16 ? go(fused_block_kernel<BF, kQDyn, HEAD, DWBF>)
-                    : go(fused_block_kernel<float, kQDyn, HEAD, DWBF>);
+    return x_bf16 ? go(fused_block_kernel<BF, kQDyn, HEAD, DWBF>)
+                  : go(fused_block_kernel<float, kQDyn, HEAD, DWBF>);
+  } else {
+    if (x_bf16) {
+      return mode == kQStatic
+                 ? go(fused_block_kernel<BF, kQStatic, HEAD, DWBF>)
+                 : go(fused_block_kernel<BF, kQBf16, HEAD, DWBF>);
     }
-  }
-  if (x_bf16) {
     return mode == kQStatic
-               ? go(fused_block_kernel<BF, kQStatic, HEAD, DWBF>)
-               : go(fused_block_kernel<BF, kQBf16, HEAD, DWBF>);
+               ? go(fused_block_kernel<float, kQStatic, HEAD, DWBF>)
+               : go(fused_block_kernel<float, kQBf16, HEAD, DWBF>);
   }
-  return mode == kQStatic
-             ? go(fused_block_kernel<float, kQStatic, HEAD, DWBF>)
-             : go(fused_block_kernel<float, kQBf16, HEAD, DWBF>);
 }
 
 inline BlockParams make_block_params(

@@ -4,9 +4,9 @@
 //   D[M, N] = A[K, M]^T . B[K, N], split over K           (gemm_mn)
 //   D1 = A1 . B1^T and D2 = A2 . B2^T of one tile          (dual_gemm)
 //
-// gemm: A and B bf16, row-major with K contiguous (the torch layout of a
-// Linear's input and weight, so weights need no transpose), f32 sums in
-// registers. gemm_mn takes both operands MN-major (M and N contiguous: the
+// gemm: A and B bf16 (f32 sums in registers) or int8 (exact s32 sums),
+// row-major with K contiguous (the torch layout of a Linear's input and
+// weight, so weights need no transpose). gemm_mn takes both operands MN-major (M and N contiguous: the
 // activations of a weight gradient, summed over their rows) through wgmma's
 // transpose immediates and the MN-major descriptor; dual_gemm runs two
 // K-major products of the same shape in one CTA (below, at each kernel).
@@ -17,22 +17,22 @@
 //
 // Design (NVIDIA's Hopper tuning guide; CUTLASS's "warp-specialized"
 // kernels take the same shape):
-//   - A CTA owns a [kBM = 128, BN] tile of D. Its K loop walks kBK = 64
-//     columns at a time: one 128-byte row of bf16, the width of the TMA
-//     128-byte swizzle.
+//   - A CTA owns a [kBM = 128, BN] tile of D. Its K loop walks 128 bytes
+//     of each row at a time (kBK = 64 bf16 columns, or 128 int8 ones): the
+//     width of the TMA 128-byte swizzle.
 //   - One producer warp issues TMA tile loads through tensor maps (A tiles
 //     [128, 64], B tiles [BN, 64], 128-byte swizzle) into a ring of STAGES
 //     shared-memory stages, each with a "full" mbarrier (the TMA reports
 //     the bytes it wrote) and an "empty" one (each consumer warp arrives
 //     when its warpgroup's wgmma no longer read the stage).
 //   - Two consumer warpgroups, 64 rows each, run wgmma.mma_async m64nBNk16
-//     (bf16 in, f32 out) from shared memory on both operands, four per
-//     stage, and keep one stage's wgmma in flight while they wait for the
-//     next.
+//     (bf16 in, f32 out) or m64nBNk32 (s8 in, s32 out) from shared memory
+//     on both operands, four per stage (32 bytes of K each), and keep one
+//     stage's wgmma in flight while they wait for the next.
 //   - Rows past M and columns past K read as zeros (the TMA fills them), so
 //     ragged M, N and K need no special path; the epilogue masks rows and
 //     columns past the end.
-//   - The epilogue stages the f32 tile through the (then idle) ring, so
+//   - The epilogue stages the tile (f32 or s32) through the (then idle) ring, so
 //     that each thread hands the functor eight adjacent columns of one row
 //     and a warp's loads and stores cover whole rows (16-byte accesses).
 //     With a 128-wide tile and three stages two CTAs fit on an SM
@@ -43,7 +43,12 @@
 // The wgmma shared-memory descriptors are the 128-byte-swizzle K-major
 // layout that the tensor maps write: 8-row groups 1024 bytes apart (SBO),
 // each stage 1024-byte aligned, a 16-deep K step 32 bytes further along the
-// swizzled row.
+// swizzled row. The s8 mode has the same bytes everywhere: a stage is 128
+// int8 columns (the same 128-byte rows, swizzle and descriptors), a 32-deep
+// step the same 32 bytes along the row; 8-bit wgmma reads K-major operands
+// only, which is what gemm takes. Its s32 sums are exact in any order
+// (|sum| <= 127^2 K < 2^31 for K < 133,000) and reach the epilogue as
+// ints: an epilogue of the s8 mode takes ``const int (&v)[8]``.
 //
 // cuTensorMapEncodeTiled is a driver API function: it is looked up through
 // the runtime (cudaGetDriverEntryPoint), so the library links no -lcuda.
@@ -52,6 +57,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,19 +95,24 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A row-major [rows, K] bf16 matrix as TMA tiles of [box_rows, kBK] with
-// 128-byte swizzle. TMA needs a 16-byte aligned base and row stride.
+// A row-major [rows, K] matrix of bf16 (``elt`` 2) or int8 (``elt`` 1) as
+// TMA tiles of [box_rows, 128 bytes] with 128-byte swizzle. TMA needs a
+// 16-byte aligned base and row stride.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rows,
-                            int K, int box_rows) {
+                            int K, int box_rows, int elt = 2) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
-  if ((reinterpret_cast<uintptr_t>(base) & 15) || K % 8 || rows <= 0)
+  if ((reinterpret_cast<uintptr_t>(base) & 15) || (K * elt) % 16 ||
+      rows <= 0)
     return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * elt};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elt), (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = enc(map,
+                         elt == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         2,
                          const_cast<void*>(base), dims, strides, box, steps,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
@@ -206,6 +217,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d[64 x N] (+)= A[64 x 16] . B[N x 16]^T, both from shared memory
@@ -420,6 +436,159 @@ __device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// d[64 x N] (+)= A[64 x 32] . B[N x 32]^T, s8 operands from shared memory,
+// K-major, exact s32 sums; the accumulator layout of wgmma_bf16.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc);
+
+#define CPT_RW4(d, i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define CPT_RW16(d, i) \
+  CPT_RW4(d, i), CPT_RW4(d, i + 4), CPT_RW4(d, i + 8), CPT_RW4(d, i + 12)
+#define CPT_RW32(d) CPT_RW16(d, 0), CPT_RW16(d, 16)
+#define CPT_RW48(d) CPT_RW32(d), CPT_RW16(d, 32)
+#define CPT_RW64(d) CPT_RW48(d), CPT_RW16(d, 48)
+#define CPT_RW96(d) CPT_RW64(d), CPT_RW16(d, 64), CPT_RW16(d, 80)
+#define CPT_RW128(d) CPT_RW96(d), CPT_RW16(d, 96), CPT_RW16(d, 112)
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : CPT_RW32(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<96>(int (&d)[48], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      : CPT_RW48(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : CPT_RW64(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<192>(int (&d)[96], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : CPT_RW96(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : CPT_RW128(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+#undef CPT_RW4
+#undef CPT_RW16
+#undef CPT_RW32
+#undef CPT_RW48
+#undef CPT_RW64
+#undef CPT_RW96
+#undef CPT_RW128
+
+// What the K-major gemm needs of its operand type: the accumulator, the
+// columns a 128-byte stage holds, and the wgmma of one 32-byte K step.
+template <typename In>
+struct KMajor;
+template <>
+struct KMajor<__nv_bfloat16> {
+  using Acc = float;
+  static constexpr int kCols = 64;
+  template <int BN>
+  __device__ static void mma(float (&d)[BN / 2], uint64_t a, uint64_t b) {
+    wgmma_bf16<BN>(d, a, b, 1);
+  }
+};
+template <>
+struct KMajor<int8_t> {
+  using Acc = int;
+  static constexpr int kCols = 128;
+  template <int BN>
+  __device__ static void mma(int (&d)[BN / 2], uint64_t a, uint64_t b) {
+    wgmma_s8<BN>(d, a, b, 1);
+  }
+};
+
+// Two accumulator values into the staged tile, and eight back out.
+__device__ __forceinline__ void stage2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void stage2(int* p, int a, int b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
+}
+__device__ __forceinline__ void unstage8(const float* p, float (&v)[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+__device__ __forceinline__ void unstage8(const int* p, int (&v)[8]) {
+  const int4 lo = reinterpret_cast<const int4*>(p)[0];
+  const int4 hi = reinterpret_cast<const int4*>(p)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
 // ---- the kernel ----
 
 // Row stride (floats) of the f32 tile the epilogue stages: 8 more than BN,
@@ -439,18 +608,20 @@ __host__ __device__ constexpr int smem_bytes() {
 }
 
 // The consumer warpgroups of gemm_kernel (MN: of gemm_mn_kernel, whose
-// stages hold MN-major tiles): warpgroup wg owns rows [64 wg, 64 wg + 64)
-// of the tile.
-template <int BN, int STAGES, typename Epi, bool MN = false>
+// stages hold MN-major tiles; In: the K-major operand type): warpgroup wg
+// owns rows [64 wg, 64 wg + 64) of the tile.
+template <int BN, int STAGES, typename Epi, bool MN = false,
+          typename In = __nv_bfloat16>
 __device__ __forceinline__ void consume(unsigned char* sa, unsigned char* sb,
                                         uint64_t* full, uint64_t* empty,
                                         int m0, int n0, int M, int N,
                                         int steps, const Epi& epi) {
+  using Acc = typename KMajor<In>::Acc;
   constexpr int kA = kBM * kBK * 2, kB = BN * kBK * 2;  // stage bytes
   const int warp = threadIdx.x / 32, wg = warp / 4;
-  float d[BN / 2];
+  Acc d[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) d[i] = 0.0f;
+  for (int i = 0; i < BN / 2; ++i) d[i] = Acc(0);
   for (int k = 0; k < steps; ++k) {
     const int s = k % STAGES;
     mbar_wait(full + s, (k / STAGES) & 1);
@@ -471,8 +642,8 @@ __device__ __forceinline__ void consume(unsigned char* sa, unsigned char* sb,
       fence_regs(d);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_bf16<BN>(d, da + 2 * kk, db + 2 * kk, 1);  // +32 bytes a step
+      for (int kk = 0; kk < 4; ++kk)  // +32 bytes of K a step
+        KMajor<In>::template mma<BN>(d, da + 2 * kk, db + 2 * kk);
     }
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's wgmma are done: release it
@@ -483,39 +654,37 @@ __device__ __forceinline__ void consume(unsigned char* sa, unsigned char* sb,
   fence_regs(d);
 
   // epilogue: both warpgroups are done with the ring (every stage was
-  // consumed, so the producer is done too); stage the f32 tile there
+  // consumed, so the producer is done too); stage the tile there
   constexpr int S = stage_stride<BN>();
-  float* tile = reinterpret_cast<float*>(sa);
+  Acc* tile = reinterpret_cast<Acc*>(sa);
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
   {
     const int t = threadIdx.x % 128;
-    float* r0 = tile + (wg * 64 + (t / 32) * 16 + (t % 32) / 4) * S +
-                2 * (t % 4);
+    Acc* r0 = tile + (wg * 64 + (t / 32) * 16 + (t % 32) / 4) * S +
+              2 * (t % 4);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(d[4 * j],
-                                                           d[4 * j + 1]);
-      *reinterpret_cast<float2*>(r0 + 8 * S + 8 * j) =
-          make_float2(d[4 * j + 2], d[4 * j + 3]);
+      stage2(r0 + 8 * j, d[4 * j], d[4 * j + 1]);
+      stage2(r0 + 8 * S + 8 * j, d[4 * j + 2], d[4 * j + 3]);
     }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
   for (int i = threadIdx.x; i < kBM * (BN / 8); i += kConsumers) {
     const int r = i / (BN / 8), c = 8 * (i % (BN / 8));
     if (m0 + r < M && n0 + c < N) {
-      const float4* src = reinterpret_cast<const float4*>(tile + r * S + c);
-      const float4 lo = src[0], hi = src[1];
-      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      Acc v[8];
+      unstage8(tile + r * S + c, v);
       epi(m0 + r, n0 + c, v);
     }
   }
 }
 
-template <int BN, int STAGES, int MINB, typename Epi>
+template <int BN, int STAGES, int MINB, typename Epi, typename In>
 __global__ void __launch_bounds__(kThreads, MINB)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b, int M, int N,
                 int K, const Epi epi) {
+  constexpr int kCols = KMajor<In>::kCols;  // K columns a stage
   constexpr int kA = kBM * kBK * 2, kB = BN * kBK * 2;  // stage bytes
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sa = reinterpret_cast<unsigned char*>(
@@ -527,7 +696,7 @@ __global__ void __launch_bounds__(kThreads, MINB)
       reinterpret_cast<uint64_t*>(sa + (kRing > kTile ? kRing : kTile));
   uint64_t* empty = full + STAGES;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
-  const int steps = (K + kBK - 1) / kBK;
+  const int steps = (K + kCols - 1) / kCols;
   const int warp = threadIdx.x / 32;
 
   if (threadIdx.x == 0) {
@@ -546,29 +715,33 @@ __global__ void __launch_bounds__(kThreads, MINB)
         const int s = k % STAGES;
         mbar_wait(empty + s, ((k / STAGES) & 1) ^ 1);
         mbar_expect_tx(full + s, kA + kB);
-        tma_load(sa + s * kA, &map_a, full + s, k * kBK, m0);
-        tma_load(sb + s * kB, &map_b, full + s, k * kBK, n0);
+        tma_load(sa + s * kA, &map_a, full + s, k * kCols, m0);
+        tma_load(sb + s * kB, &map_b, full + s, k * kCols, n0);
       }
     }
     return;
   }
-  consume<BN, STAGES>(sa, sb, full, empty, m0, n0, M, N, steps, epi);
+  consume<BN, STAGES, Epi, false, In>(sa, sb, full, empty, m0, n0, M, N,
+                                      steps, epi);
 }
 
-// Launch D = A . B^T through ``epi`` on ``stream``: A [M, K], B [N, K] bf16,
-// 16-byte aligned, K % 8 == 0, N % 8 == 0.
-template <int BN, int STAGES, int MINB, typename Epi>
+// Launch D = A . B^T through ``epi`` on ``stream``: A [M, K], B [N, K] of
+// ``In`` (bf16 or int8), 16-byte aligned, K a multiple of 16 bytes,
+// N % 8 == 0.
+template <int BN, int STAGES, int MINB, typename Epi,
+          typename In = __nv_bfloat16>
 cudaError_t gemm(const void* A, const void* B, int M, int N, int K,
                  const Epi& epi, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 8) return cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
-  cudaError_t err = make_map(&map_a, A, M, K, kBM);
+  constexpr int elt = (int)sizeof(In);
+  cudaError_t err = make_map(&map_a, A, M, K, kBM, elt);
   if (err != cudaSuccess) return err;
-  err = make_map(&map_b, B, N, K, BN);
+  err = make_map(&map_b, B, N, K, BN, elt);
   if (err != cudaSuccess) return err;
-  auto kernel = gemm_kernel<BN, STAGES, MINB, Epi>;
+  auto kernel = gemm_kernel<BN, STAGES, MINB, Epi, In>;
   constexpr int smem = smem_bytes<BN, STAGES>();
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -590,6 +763,18 @@ struct StoreF32 {
     float4* p = reinterpret_cast<float4*>(d + (size_t)r * N + c);
     p[0] = make_float4(v[0], v[1], v[2], v[3]);
     p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
+// The exact s32 sums of the s8 mode, [M, N] row-major at ``d``.
+struct StoreS32 {
+  int* d;
+  int N;
+  __device__ __forceinline__ void operator()(int r, int c,
+                                             const int (&v)[8]) const {
+    int4* p = reinterpret_cast<int4*>(d + (size_t)r * N + c);
+    p[0] = make_int4(v[0], v[1], v[2], v[3]);
+    p[1] = make_int4(v[4], v[5], v[6], v[7]);
   }
 };
 }  // namespace

@@ -19,6 +19,17 @@ halo with bounds checks). Three GEMM modes, as on the TPU:
   dimension twice to know each row's GELU scale (ops/cuda/block.cuh); its
   launches count as ``fused_block_int8_dyn``.
 
+In the bf16 and int8-static modes kernel A is three launches
+(ops/cuda/fused_block.cu), and its plain version the composition of the
+same three stages: :func:`block_prologue_plain` (depthwise conv, LayerNorm,
+the GEMM operand ``n`` in bf16 or int8), :func:`block_up_plain` (GEMM 1,
+GELU, the hidden operand in bf16 or int8) and :func:`block_down_plain`
+(GEMM 2, layer scale, residual). :func:`block_prologue`, :func:`block_up`,
+:func:`block_down` and :func:`sm90_gemm_s8` (the s8 mode of the GEMM core
+both int8 GEMMs run on) launch one stage alone, so that a check can hold
+each against its plain version; a call of :func:`fused_block` counts as
+one launch of kernel A.
+
 ``dw_bf16=True`` runs the 49 depthwise taps in bf16, in any of the three
 modes, as the TPU's ``tap_dtype=bfloat16`` does
 (:func:`dwconv7_bf16_taps_plain` writes the arithmetic out; the kernel
@@ -26,9 +37,9 @@ takes two channels a thread in bf16x2); its launches count as
 ``fused_block_dwbf16`` and ``fused_block_int8_dyn_dwbf16``.
 
 Weights are prepared once (:func:`prepare_block`), in the layout the kernel
-reads: ``[out, in]`` GEMM operands. :func:`fused_block` launches the CUDA
-kernel (ops/cuda/fused_block.cu) for a CUDA tensor and runs
-:func:`fused_block_plain` for a CPU tensor.
+reads: ``[out, in]`` GEMM operands (K-major, as the int8 wgmma reads them).
+:func:`fused_block` launches the CUDA kernels (ops/cuda/fused_block.cu) for
+a CUDA tensor and runs :func:`fused_block_plain` for a CPU tensor.
 
 For training (``--fused_whole_blocks``), :func:`fused_block_ad` is the
 port of the JAX package's ``fused_block_ad``: kernel A in bf16 mode as the
@@ -45,12 +56,16 @@ import torch.nn.functional as F
 
 from . import cuda as _cuda
 from .dwconv_bwd import dwconv7_ad
+from .fused_mlp import _aligned
+from .fused_mlp_bwd import _rows
 from .int8_gemm import quant_rows
 
 __all__ = ["quantize_block_weights", "quantize_block_weights_folded",
            "prepare_block", "dwconv7_bf16_taps_plain", "fused_block",
-           "fused_block_plain", "block_residual_plain", "block_body_plain",
-           "fused_block_ad", "FusedBlock"]
+           "fused_block_plain", "block_residual_plain", "block_prologue",
+           "block_prologue_plain", "block_up", "block_up_plain",
+           "block_down", "block_down_plain", "sm90_gemm_s8",
+           "block_body_plain", "fused_block_ad", "FusedBlock"]
 
 K = 7
 PAD = 3
@@ -144,44 +159,93 @@ def dwconv7_bf16_taps_plain(x, dwk, dwb):
     return acc
 
 
-def block_residual_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
-    """Plain PyTorch block on NHWC ``x``; returns the f32 block output
-    (before the cast to ``x.dtype``). The int8 GEMMs run in float64, which
-    holds their integer sums exactly. ``dw_bf16``: the depthwise taps of
-    :func:`dwconv7_bf16_taps_plain`. On a GPU, set
-    ``torch.backends.cudnn.allow_tf32 = False`` first: the f32 depthwise
-    conv would otherwise run in TF32."""
-    x32 = x.to(torch.float32)
+def _ln_plain(x, pb, eps, dw_bf16):
+    """Depthwise 7x7 + bias (f32 taps, or :func:`dwconv7_bf16_taps_plain`),
+    then LayerNorm, in f32."""
     c = x.shape[-1]
     if dw_bf16:
         d = dwconv7_bf16_taps_plain(x, pb["dwk"], pb["dwb"])
     else:
         wk = pb["dwk"].t().reshape(c, 1, K, K)
-        d = F.conv2d(x32.permute(0, 3, 1, 2), wk, pb["dwb"], padding=PAD,
-                     groups=c).permute(0, 2, 3, 1)
+        d = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), wk, pb["dwb"],
+                     padding=PAD, groups=c).permute(0, 2, 3, 1)
     mu = d.mean(dim=-1, keepdim=True)
     var = (d - mu).square().mean(dim=-1, keepdim=True)
-    n = (d - mu) * torch.rsqrt(var + eps) * pb["lns"] + pb["lnb"]
+    return (d - mu) * torch.rsqrt(var + eps) * pb["lns"] + pb["lnb"]
+
+
+def _quant_static(v, inv):
+    """round(clip(v * inv, +-127)) as int8, half to even (the kernels'
+    quant_scaled)."""
+    return torch.round(torch.clamp(v * inv, -127.0, 127.0)).to(torch.int8)
+
+
+def _static_or_bf16(pb, what):
     if pb["dynamic"]:
-        nq, nsc = quant_rows(n)
-        hid = (nq.double() @ pb["w1"].double().t()).float()
-        hid = hid * nsc * pb["s1"] + pb["b1"]
-        aq, asc = quant_rows(F.gelu(hid, approximate="tanh"))
-        y = (aq.double() @ pb["w2"].double().t()).float()
-        y = y * asc * pb["s2"] + pb["b2"]
-    elif pb["int8"]:
-        nq = torch.round(torch.clamp(n * pb["i1"], -127.0, 127.0))
-        hid = (nq.double() @ pb["w1"].double().t()).float()
-        hid = hid * pb["s1"] + pb["b1"]
-        a = F.gelu(hid, approximate="tanh")
-        aq = torch.round(torch.clamp(a * pb["i2"], -127.0, 127.0))
-        y = (aq.double() @ pb["w2"].double().t()).float()
+        raise ValueError(f"{what}: the dynamic int8 mode is one launch "
+                         f"(fused_block), it has no stages")
+
+
+def block_prologue_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
+    """Stage a of kernel A's bf16 and int8-static modes: the depthwise
+    conv, LayerNorm, and GEMM 1's operand ``n``: bf16, or int8 with the
+    static scale (``round(clip(n * i1))``). [B, H, W, C] -> the same shape
+    in bf16 or int8."""
+    _static_or_bf16(pb, "block_prologue_plain")
+    n = _ln_plain(x, pb, eps, dw_bf16)
+    return _quant_static(n, pb["i1"]) if pb["int8"] else n.to(torch.bfloat16)
+
+
+def block_up_plain(n, pb):
+    """Stage b: GEMM 1 ``n W1^T`` and its epilogue, ``[..., C] ->
+    [..., 4C]``: int8 (exact sums in float64) ``gelu_tanh(sum * s1 + b1)``
+    quantized with ``i2``, or bf16 ``gelu_tanh(sum + b1)`` rounded to
+    bf16."""
+    _static_or_bf16(pb, "block_up_plain")
+    if pb["int8"]:
+        hid = (n.double() @ pb["w1"].double().t()).float()
+        a = F.gelu(hid * pb["s1"] + pb["b1"], approximate="tanh")
+        return _quant_static(a, pb["i2"])
+    hid = n.float() @ pb["w1"].float().t() + pb["b1"]
+    return F.gelu(hid, approximate="tanh").to(torch.bfloat16)
+
+
+def _block_down_f32(h, x, pb):
+    if pb["int8"]:
+        y = (h.double() @ pb["w2"].double().t()).float()
         y = y * pb["s2"] + pb["b2"]
     else:
-        hid = n.to(torch.bfloat16).float() @ pb["w1"].float().t() + pb["b1"]
-        a = F.gelu(hid, approximate="tanh")
-        y = a.to(torch.bfloat16).float() @ pb["w2"].float().t() + pb["b2"]
-    return x32 + y * pb["g"]
+        y = h.float() @ pb["w2"].float().t() + pb["b2"]
+    return x.to(torch.float32) + y * pb["g"]
+
+
+def block_down_plain(h, x, pb):
+    """Stage c: GEMM 2 ``h W2^T`` and its epilogue, ``x + (sum * s2 + b2)
+    * g`` (int8, exact sums) or ``x + (sum + b2) * g`` (bf16), in
+    ``x.dtype``."""
+    _static_or_bf16(pb, "block_down_plain")
+    return _block_down_f32(h, x, pb).to(x.dtype)
+
+
+def block_residual_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
+    """Plain PyTorch block on NHWC ``x``; returns the f32 block output
+    (before the cast to ``x.dtype``): in the bf16 and int8-static modes the
+    composition of the three stages' plain versions. The int8 GEMMs run in
+    float64, which holds their integer sums exactly. ``dw_bf16``: the
+    depthwise taps of :func:`dwconv7_bf16_taps_plain`. On a GPU, set
+    ``torch.backends.cudnn.allow_tf32 = False`` first: the f32 depthwise
+    conv would otherwise run in TF32."""
+    if not pb["dynamic"]:
+        n = block_prologue_plain(x, pb, eps, dw_bf16)
+        return _block_down_f32(block_up_plain(n, pb), x, pb)
+    n = _ln_plain(x, pb, eps, dw_bf16)
+    nq, nsc = quant_rows(n)
+    hid = (nq.double() @ pb["w1"].double().t()).float()
+    hid = hid * nsc * pb["s1"] + pb["b1"]
+    aq, asc = quant_rows(F.gelu(hid, approximate="tanh"))
+    y = (aq.double() @ pb["w2"].double().t()).float()
+    y = y * asc * pb["s2"] + pb["b2"]
+    return x.to(torch.float32) + y * pb["g"]
 
 
 def fused_block_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
@@ -218,6 +282,10 @@ def block_args(x, pb):
             p(pb["g"])]
 
 
+def _operand_dtype(pb):
+    return torch.int8 if pb["int8"] else torch.bfloat16
+
+
 def fused_block(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     """Whole ConvNeXt block on a compact NHWC plane ``x`` [B, H, W, C]
     (f32 or bf16), weights from :func:`prepare_block`; ``dw_bf16``: bf16
@@ -228,18 +296,111 @@ def fused_block(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     if x.device.type != "cuda":
         raise ValueError(f"fused_block: unsupported device {x.device}")
     check_block_inputs(x, pb)
-    if dw_bf16 and x.data_ptr() % 8:
-        raise ValueError("fused_block(dw_bf16=True) loads channel pairs: "
-                         "the plane must start 8-byte aligned")
+    n = hid = None
+    if pb["dynamic"]:
+        if dw_bf16 and x.data_ptr() % 8:
+            raise ValueError("fused_block(dw_bf16=True) loads channel "
+                             "pairs: the plane must start 8-byte aligned")
+    else:
+        # the three launches' scratch: GEMM 1's and GEMM 2's operands
+        _aligned(x, "fused_block: the plane")
+        r, c = x.numel() // x.shape[-1], x.shape[-1]
+        n = torch.empty(r, c, dtype=_operand_dtype(pb), device=x.device)
+        hid = torch.empty(r, 4 * c, dtype=n.dtype, device=x.device)
     out = torch.empty_like(x)
-    lib = _cuda.library()
-    code = lib.cpt_fused_block(
+    code = _cuda.library().cpt_fused_block(
         x.data_ptr(), out.data_ptr(), int(dw_bf16), *block_args(x, pb),
-        float(eps), _cuda.stream_ptr(x.device))
+        float(eps), _cuda.ptr(n), _cuda.ptr(hid), _cuda.stream_ptr(x.device))
     _cuda.check(code, "fused_block")
     name = "fused_block_int8_dyn" if pb["dynamic"] else "fused_block"
     _cuda.count_launch(name + "_dwbf16" if dw_bf16 else name, x.shape[-1])
     return out
+
+
+def block_prologue(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
+    """Kernel A's stage a alone (CUDA), or :func:`block_prologue_plain`
+    (CPU)."""
+    if x.device.type == "cpu":
+        return block_prologue_plain(x, pb, eps, dw_bf16)
+    _static_or_bf16(pb, "block_prologue")
+    check_block_inputs(x, pb)
+    if dw_bf16 and x.data_ptr() % 8:
+        raise ValueError("block_prologue(dw_bf16=True) loads channel pairs: "
+                         "the plane must start 8-byte aligned")
+    b, h, w, c = x.shape
+    n = torch.empty(x.shape, dtype=_operand_dtype(pb), device=x.device)
+    p = _cuda.ptr
+    code = _cuda.library().cpt_block_prologue(
+        x.data_ptr(), n.data_ptr(), int(dw_bf16),
+        int(x.dtype == torch.bfloat16), int(pb["int8"]), b, h, w, c,
+        p(pb["dwk"]), p(pb["dwb"]), p(pb["lns"]), p(pb["lnb"]), p(pb["i1"]),
+        float(eps), _cuda.stream_ptr(x.device))
+    _cuda.check(code, "block_prologue")
+    return n
+
+
+def block_up(n, pb, tile: int = 0):
+    """Kernel A's stage b (GEMM 1 and its epilogue) alone (CUDA), or
+    :func:`block_up_plain` (CPU). ``tile`` (int8): 0 the tile kernel A
+    takes, 1-5 the candidates it was chosen from (ops/cuda/fused_block.cu:
+    gemm_s8)."""
+    if n.device.type == "cpu":
+        return block_up_plain(n, pb)
+    _static_or_bf16(pb, "block_up")
+    c = n.shape[-1]
+    nf = _rows(n, c, "block_up", (_operand_dtype(pb),), tma=True)
+    h = torch.empty(*n.shape[:-1], 4 * c, dtype=n.dtype, device=n.device)
+    p = _cuda.ptr
+    code = _cuda.library().cpt_block_up(
+        p(nf), p(pb["w1"]), p(pb["s1"]), p(pb["b1"]), p(pb["i2"]), p(h),
+        int(pb["int8"]), nf.shape[0], c, int(tile), _cuda.stream_ptr(n.device))
+    _cuda.check(code, "block_up")
+    return h
+
+
+def block_down(h, x, pb, tile: int = 0):
+    """Kernel A's stage c (GEMM 2, layer scale and residual ``x``) alone
+    (CUDA), or :func:`block_down_plain` (CPU); ``tile`` as for
+    :func:`block_up`."""
+    if h.device.type == "cpu":
+        return block_down_plain(h, x, pb)
+    _static_or_bf16(pb, "block_down")
+    c = x.shape[-1]
+    hf = _rows(h, 4 * c, "block_down", (_operand_dtype(pb),), tma=True)
+    xf = _rows(x, c, "block_down: the residual", tma=True)
+    if hf.shape[0] != xf.shape[0]:
+        raise ValueError(f"block_down: {hf.shape[0]} hidden rows, "
+                         f"{xf.shape[0]} residual rows")
+    out = torch.empty_like(x)
+    p = _cuda.ptr
+    code = _cuda.library().cpt_block_down(
+        p(hf), p(pb["w2"]), p(pb["s2"]), p(pb["b2"]), p(pb["g"]), p(xf),
+        int(x.dtype == torch.bfloat16), p(out), int(pb["int8"]), xf.shape[0],
+        c, int(tile), _cuda.stream_ptr(h.device))
+    _cuda.check(code, "block_down")
+    return out
+
+
+def sm90_gemm_s8(a, b):
+    """The GEMM core's s8 mode alone: ``a [M, K] . b [N, K]^T`` with int8
+    operands, exact int32 out, with the tile kernel A's GEMM 1 (N = 4K) or
+    else its GEMM 2 takes (CUDA); on the CPU the same sums in float64."""
+    if a.device.type == "cpu":
+        return (a.double() @ b.double().t()).to(torch.int32)
+    k = a.shape[-1]
+    if a.dim() != 2 or b.dim() != 2 or k % 16 or b.shape[0] % 8:
+        raise ValueError(f"sm90_gemm_s8 takes [M, K], [N, K] with K % 16 == "
+                         f"0 and N % 8 == 0, not {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    af = _rows(a, k, "sm90_gemm_s8: a", (torch.int8,), tma=True)
+    bf = _rows(b, k, "sm90_gemm_s8: b", (torch.int8,), tma=True)
+    d = torch.empty(a.shape[0], b.shape[0], dtype=torch.int32,
+                    device=a.device)
+    code = _cuda.library().cpt_sm90_gemm_s8(
+        _cuda.ptr(af), _cuda.ptr(bf), _cuda.ptr(d), a.shape[0], b.shape[0],
+        k, _cuda.stream_ptr(a.device))
+    _cuda.check(code, "sm90_gemm_s8")
+    return d
 
 
 def block_body_plain(x, dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight,

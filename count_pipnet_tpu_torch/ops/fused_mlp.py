@@ -134,12 +134,14 @@ def fused_ln_mlp_residual(x, residual, ln_scale, ln_bias, w1, b1, w2, b2,
     out = torch.empty_like(rf)
     n = torch.empty(r, c, dtype=_BF, device=x.device)
     h = torch.empty(r, 4 * c, dtype=_BF, device=x.device)
+    # f32 copies held in names until the launch returns: an inline
+    # temporary may be freed, and its memory taken, before the kernel runs
+    lns, lnb, b1f, b2f, gf = map(_f32, (ln_scale, ln_bias, b1, b2, gamma))
     p = _cuda.ptr
     code = _cuda.library().cpt_fused_mlp(
         p(xf), p(rf), p(out), int(xf.dtype == _BF), int(rf.dtype == _BF), r,
-        c, p(_f32(ln_scale)), p(_f32(ln_bias)), p(w1b), p(_f32(b1)), p(w2b),
-        p(_f32(b2)), p(_f32(gamma)), float(eps), p(n), p(h),
-        _cuda.stream_ptr(x.device))
+        c, p(lns), p(lnb), p(w1b), p(b1f), p(w2b), p(b2f), p(gf), float(eps),
+        p(n), p(h), _cuda.stream_ptr(x.device))
     _cuda.check(code, "fused_ln_mlp_residual")
     _cuda.count_launch("fused_ln_mlp_residual", c)
     return out.reshape(residual.shape)
@@ -152,9 +154,10 @@ def ln_rows(x, ln_scale, ln_bias, eps: float = 1e-6):
     c = _width(x.shape[-1])
     xf = _rows(x, c, "ln_rows")
     n = torch.empty(xf.shape, dtype=_BF, device=x.device)
+    lns, lnb = _f32(ln_scale), _f32(ln_bias)
     code = _cuda.library().cpt_mlp_ln_rows(
         _cuda.ptr(xf), int(xf.dtype == _BF), _cuda.ptr(n), xf.shape[0], c,
-        _cuda.ptr(_f32(ln_scale)), _cuda.ptr(_f32(ln_bias)), float(eps),
+        _cuda.ptr(lns), _cuda.ptr(lnb), float(eps),
         _cuda.stream_ptr(x.device))
     _cuda.check(code, "ln_rows")
     return n.reshape(x.shape)
@@ -168,10 +171,10 @@ def mlp_up_gelu(n, w1, b1):
     c = _width(n.shape[-1])
     nf = _rows(n, c, "mlp_up_gelu", (_BF,))
     h = torch.empty(nf.shape[0], 4 * c, dtype=_BF, device=n.device)
+    w1b, b1f = _weight(w1, (4 * c, c), "w1"), _f32(b1)
     code = _cuda.library().cpt_mlp_up_gelu(
-        _cuda.ptr(nf), _cuda.ptr(_weight(w1, (4 * c, c), "w1")),
-        _cuda.ptr(_f32(b1)), _cuda.ptr(h), nf.shape[0], c,
-        _cuda.stream_ptr(n.device))
+        _cuda.ptr(nf), _cuda.ptr(w1b), _cuda.ptr(b1f), _cuda.ptr(h),
+        nf.shape[0], c, _cuda.stream_ptr(n.device))
     _cuda.check(code, "mlp_up_gelu")
     return h.reshape(*n.shape[:-1], 4 * c)
 
@@ -188,10 +191,10 @@ def mlp_down_residual(h, residual, w2, b2, gamma):
         raise ValueError(f"{hf.shape[0]} hidden rows, {rf.shape[0]} "
                          f"residual rows")
     out = torch.empty_like(rf)
+    w2b, b2f, gf = _weight(w2, (c, 4 * c), "w2"), _f32(b2), _f32(gamma)
     code = _cuda.library().cpt_mlp_down_residual(
-        _cuda.ptr(hf), _cuda.ptr(_weight(w2, (c, 4 * c), "w2")),
-        _cuda.ptr(_f32(b2)), _cuda.ptr(_f32(gamma)), _cuda.ptr(rf),
-        int(rf.dtype == _BF), _cuda.ptr(out), rf.shape[0], c,
+        _cuda.ptr(hf), _cuda.ptr(w2b), _cuda.ptr(b2f), _cuda.ptr(gf),
+        _cuda.ptr(rf), int(rf.dtype == _BF), _cuda.ptr(out), rf.shape[0], c,
         _cuda.stream_ptr(h.device))
     _cuda.check(code, "mlp_down_residual")
     return out.reshape(residual.shape)
