@@ -40,8 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # its kernel, and nowhere else.
 # Kernel A in its dynamic int8 mode counts as "fused_block_int8_dyn", and
 # with bf16 depthwise taps as "fused_block_dwbf16" (bf16 and int8-static
-# GEMMs) or "fused_block_int8_dyn_dwbf16"; a call of its bf16 or
-# int8-static mode (three launches) counts once.
+# GEMMs) or "fused_block_int8_dyn_dwbf16"; a call of kernel A (three
+# launches, four in the dynamic mode) counts once.
 launch_counts = {"fused_block": 0, "gumbel_hard_counts": 0,
                  "fused_block_gumbel_counts": 0, "fused_ln_mlp_residual": 0,
                  "fused_mlp_bwd": 0, "dwconv7": 0, "dwconv7_wgrad": 0,
@@ -69,16 +69,18 @@ _BLOCK_ARGS = [_I, _I, _I, _I, _I, _I,            # x_bf16 mode B H W C
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # x, out, dw_bf16, x_bf16, mode, B, H, W, C, ..., n (scratch),
-    # h (scratch), stream
-    "cpt_fused_block": [_P, _P, _I] + _BLOCK_ARGS + [_P, _P, _P],
-    # kernel A's stages: x, n, dw_bf16, x_bf16, int8, B, H, W, C, dwk, dwb,
-    # lns, lnb, i1, eps, stream
-    "cpt_block_prologue": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                           _P, _P, _F, _P],
-    # n, w1, s1, b1, i2, h, int8, R, C, tile, stream
-    "cpt_block_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # h, w2, s2, b2, g, x, x_bf16, out, int8, R, C, tile, stream
-    "cpt_block_down": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # h (scratch), rs (row-scale scratch, dynamic mode), stream
+    "cpt_fused_block": [_P, _P, _I] + _BLOCK_ARGS + [_P, _P, _P, _P],
+    # kernel A's launches: x, n, nsc, amax, dw_bf16, x_bf16, mode, B, H, W,
+    # C, dwk, dwb, lns, lnb, i1, eps, stream
+    "cpt_block_prologue": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _F, _P],
+    # n, w1, s1, b1, i2, h, nsc, amax, asc, mode, passes, R, C, tile, stream
+    "cpt_block_up": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _P],
+    # h, w2, s2, b2, g, asc, x, x_bf16, out, mode, R, C, tile, stream
+    "cpt_block_down": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                       _P],
     # the GEMM core's s8 mode: a, b, d (s32), M, N, K, stream
     "cpt_sm90_gemm_s8": [_P, _P, _P, _I, _I, _I, _P],
     # logits, x_bf16, noise, counts, B, HW, C, seed, stream

@@ -7,43 +7,31 @@
 //   prologue (fused_block.cu), K7 (dwconv.cu) and K8 (dwconv_wgrad.cu) use;
 // - the arithmetic of each step as __device__ functions with their
 //   floating-point contraction pinned (ln_stats, ln_value, quant_scaled,
-//   up_static, block_out), so that every kernel that computes a step
-//   computes the same bits: kernel A's three launches (fused_block.cu) and
-//   the one-kernel body below, which kernel C runs;
-// - that one-kernel body, fused_block_kernel, for two callers: kernel C
-//   (HEAD: the block of count_pipnet_tpu/ops/pallas/gumbel_head.py:
-//   fused_block_gumbel_counts, :268, with the noisy-argmax histogram as its
-//   epilogue, so the last plane is never written), and kernel A's dynamic
-//   int8 mode (the TPU's _kernel_int8 and _kernel_int8_pad,
-//   ops/pallas/fused_block.py:250, :313). Kernel A's bf16 and int8-static
-//   modes are three launches on the TMA-fed wgmma core (fused_block.cu);
-//   these two keep the one-kernel body because each needs a whole row at
-//   once (the argmax over C; the dynamic scale over 4C), more than one
-//   GEMM tile of the new design holds.
+//   up_static, up_dyn, block_out), so that every kernel that computes a
+//   step computes the same bits: kernel A's launches (fused_block.cu) and
+//   the one-kernel body below;
+// - that one-kernel body, fused_block_kernel, for kernel C alone (the
+//   block of count_pipnet_tpu/ops/pallas/gumbel_head.py:
+//   fused_block_gumbel_counts, :268, in its bf16 and int8-static modes,
+//   with the noisy-argmax histogram as its epilogue, so the last plane is
+//   never written). It keeps one kernel because the argmax needs a whole
+//   row of the block output at once, more than one GEMM tile of kernel A's
+//   launches holds. Kernel A runs every mode, the dynamic int8 one
+//   included, as launches on the TMA-fed wgmma core (fused_block.cu).
 //
 // The body keeps the depthwise output and the 4C-wide hidden activation on
 // the SM:
 //
 //   1. A CTA owns TM patch rows. It computes dw7x7 for them (halo by bounds
-//      checks; f32 taps, or with DWBF the TPU's bf16 taps, on channel pairs
-//      in bf16x2: dw7_dot), then LayerNorm, and keeps the LN output in
-//      shared memory as the GEMM operand (bf16, or int8 with the static
-//      scale or with a per-row scale over C).
+//      checks, f32 taps), then LayerNorm, and keeps the LN output in shared
+//      memory as the GEMM operand (bf16, or int8 with the static scale).
 //   2. It walks the hidden dimension in chunks of HC: pw1 chunk -> bias ->
 //      GELU -> cast / quantize -> accumulate pw2 into a [TM, C] shared
-//      accumulator (int32 in the int8 modes: the static scales are per
+//      accumulator (int32 in the int8 mode: the static scales are per
 //      hidden channel, so chunking is exact).
-//   3. Epilogue: dequantize, * gamma, + residual; store (dynamic mode) or,
-//      with HEAD, the noisy argmax histogram of each row.
-//
-// The dynamic int8 mode quantizes the GELU output with one scale per row
-// over all 4C hidden values, which chunk-wise quantization cannot know
-// before the last chunk. So step 2 runs twice: pass 1 computes each pw1
-// chunk, its GELU and the running row abs-max only; pass 2 recomputes each
-// chunk (the same arithmetic, the same values), quantizes it with the whole
-// row's scale and accumulates pw2. The pw1 GEMM runs twice: 1.5 times the
-// static mode's GEMM work. (A whole [TM, 4C] GELU tile would be 393 KB in
-// f32 at C = 768: it does not fit.)
+//   3. Epilogue: dequantize, * gamma, + residual (block_out, as kernel A's
+//      GEMM 2 epilogue computes it), and the noisy argmax histogram of each
+//      row.
 //
 // The body's GEMMs run on the tensor cores through mma.sync (m16n8k16
 // bf16, m16n8k32 s8) with the weights read from L2 as [out, in] rows.
@@ -60,12 +48,11 @@ constexpr int kHC = 128;       // hidden chunk
 constexpr int kThreads = 256;  // 8 warps
 
 // GEMM operand modes: bf16, int8 with calibrated static scales, int8 with
-// dynamic per-row scales.
+// dynamic per-row scales (kernel A only).
 enum : int { kQBf16 = 0, kQStatic = 1, kQDyn = 2 };
 
 struct BlockParams {
   const void* x;    // [B*H*W, C] T
-  void* out;        // [B*H*W, C] T (dynamic mode)
   int B, H, W, C;
   const float* dwk;  // [49, C], tap (dy, dx) at row dy * 7 + dx
   const float* dwb;  // [C]
@@ -129,6 +116,14 @@ __device__ __forceinline__ int8_t up_static(int acc, float s1, float b1,
                                            float i2) {
   return quant_scaled(gelu_tanh(__fadd_rn(__fmul_rn((float)acc, s1), b1)),
                       i2);
+}
+
+// GEMM 1's dynamic epilogue before quantization: the GELU output of one s32
+// sum of a row whose LN output was quantized with the scale ``nsc``, in the
+// plain version's order, (sum * nsc) * s1 + b1.
+__device__ __forceinline__ float up_dyn(int acc, float nsc, float s1,
+                                        float b1) {
+  return gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn((float)acc, nsc), s1), b1));
 }
 
 // The block output of one GEMM 2 sum ``v``: x + (v * s + b) * g (s = 1 for
@@ -313,8 +308,7 @@ __host__ __device__ inline size_t block_smem_bytes(int C) {
   using M = Mode<Q != kQBf16>;
   return (size_t)kTM * (C + 8) * 4                       // accumulator
          + (size_t)kTM * (C + M::kPad) * sizeof(typename M::E)    // LN out
-         + (size_t)kTM * (kHC + M::kPad) * sizeof(typename M::E)  // hidden
-         + (Q == kQDyn ? (size_t)3 * kTM * 4 : 0);  // row scales, abs-max
+         + (size_t)kTM * (kHC + M::kPad) * sizeof(typename M::E);  // hidden
 }
 
 // Step 1a of a CTA that owns the kTM rows from ``row0``: depthwise 7x7 +
@@ -375,11 +369,10 @@ __device__ __forceinline__ void block_dw_rows(const BlockParams& p,
   }
 }
 
-template <typename T, int Q, bool HEAD, bool DWBF = false>
+template <typename T, int Q>
 __global__ void __launch_bounds__(kThreads)
     fused_block_kernel(const BlockParams p) {
   constexpr bool INT8 = Q != kQBf16;
-  constexpr bool DYN = Q == kQDyn;
   using M = Mode<INT8>;
   using E = typename M::E;
   using Acc = typename M::Acc;
@@ -396,41 +389,17 @@ __global__ void __launch_bounds__(kThreads)
   Acc* acc = reinterpret_cast<Acc*>(smem);
   E* xn = reinterpret_cast<E*>(smem + (size_t)kTM * as * 4);
   E* hb = xn + kTM * xs;
-  // DYN: per-row scales of the LN output (nsc) and of the GELU output
-  // (asc), and the GELU row abs-max as float bits (non-negative floats
-  // order as their int bits, so atomicMax takes the max in any order)
-  float* nsc = reinterpret_cast<float*>(hb + kTM * hs);
-  float* asc = nsc + kTM;
-  int* amax_bits = reinterpret_cast<int*>(asc + kTM);
   const T* x = static_cast<const T*>(p.x);
   const unsigned char* w1 = static_cast<const unsigned char*>(p.w1);
   const unsigned char* w2 = static_cast<const unsigned char*>(p.w2);
 
-  block_dw_rows<T, DWBF>(p, accf, as, row0);
+  block_dw_rows<T, false>(p, accf, as, row0);
   __syncthreads();
 
   // 1b. LayerNorm per row (one warp a row), cast / quantize into xn
   for (int r = warp; r < kTM; r += kThreads / 32) {
     const float* d = accf + r * as;
     const float2 st = ln_stats(d, C, p.eps, lane);
-    if constexpr (DYN) {
-      // the row's LN output in place of its depthwise output, then its
-      // abs-max, then the row quantized with its own scale
-      float m = 0.0f;
-      for (int c = lane; c < C; c += 32) {
-        const float n = ln_value(d[c], st, p.lns[c], p.lnb[c]);
-        accf[r * as + c] = n;
-        m = fmaxf(m, fabsf(n));
-      }
-      const float sc = row_scale(warp_max(m));
-      for (int c = lane; c < C; c += 32)
-        xn[r * xs + c] = quant_row(d[c], sc);
-      if (lane == 0) {
-        nsc[r] = sc;
-        amax_bits[r] = 0;
-      }
-      continue;
-    }
     for (int c = lane; c < C; c += 32) {
       const float n = ln_value(d[c], st, p.lns[c], p.lnb[c]);
       if constexpr (INT8) {
@@ -444,158 +413,106 @@ __global__ void __launch_bounds__(kThreads)
   for (int idx = tid; idx < kTM * as; idx += kThreads) acc[idx] = Acc(0);
   __syncthreads();
 
-  // 2. hidden chunks: pw1 -> GELU -> pw2 accumulate (DYN: pass 1 only
-  // takes the GELU row abs-max; a thread sees rows g8 and g8 + 8 of its
-  // m-tile in every chunk)
-  constexpr int kPasses = DYN ? 2 : 1;
-  float gmax[2] = {0.0f, 0.0f};
-  for (int pass = 0; pass < kPasses; ++pass) {
-    const bool scan = pass + 1 < kPasses;
-    if (DYN && !scan) {
-      // the row maxima of pass 1 -> the GELU rows' scales
-      gmax[0] = fmaxf(gmax[0], __shfl_xor_sync(0xffffffffu, gmax[0], 1));
-      gmax[0] = fmaxf(gmax[0], __shfl_xor_sync(0xffffffffu, gmax[0], 2));
-      gmax[1] = fmaxf(gmax[1], __shfl_xor_sync(0xffffffffu, gmax[1], 1));
-      gmax[1] = fmaxf(gmax[1], __shfl_xor_sync(0xffffffffu, gmax[1], 2));
-      if (tq == 0) {
-        const int r = (warp & 1) * 16 + g8;
-        atomicMax(amax_bits + r, __float_as_int(gmax[0]));
-        atomicMax(amax_bits + r + 8, __float_as_int(gmax[1]));
-      }
-      __syncthreads();
-      if (tid < kTM) asc[tid] = row_scale(__int_as_float(amax_bits[tid]));
-      __syncthreads();
-    }
-    for (int j0 = 0; j0 < HD; j0 += kHC) {
-      {  // pw1 chunk [kTM, kHC]: warp -> m-tile (warp & 1), 4 n-tiles
-        const int mt = warp & 1, nb = (warp >> 1) * 4;
-        Acc c4[4][4];
+  // 2. hidden chunks: pw1 -> GELU -> pw2 accumulate
+  for (int j0 = 0; j0 < HD; j0 += kHC) {
+    {  // pw1 chunk [kTM, kHC]: warp -> m-tile (warp & 1), 4 n-tiles
+      const int mt = warp & 1, nb = (warp >> 1) * 4;
+      Acc c4[4][4];
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
+      for (int t = 0; t < 4; ++t)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) c4[t][e] = Acc(0);
+        for (int e = 0; e < 4; ++e) c4[t][e] = Acc(0);
 #pragma unroll 4
-        for (int k0 = 0; k0 < C; k0 += M::kK) {
-          uint32_t a[4];
-          load_frag_a(a,
-                      reinterpret_cast<const unsigned char*>(
-                          xn + (mt * 16) * xs + k0),
-                      xs * (int)sizeof(E), lane);
+      for (int k0 = 0; k0 < C; k0 += M::kK) {
+        uint32_t a[4];
+        load_frag_a(a,
+                    reinterpret_cast<const unsigned char*>(
+                        xn + (mt * 16) * xs + k0),
+                    xs * (int)sizeof(E), lane);
 #pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            uint32_t bf[2];
-            const int n0 = j0 + (nb + t) * 8;
-            load_frag_b(bf, w1 + ((size_t)n0 * C + k0) * sizeof(E),
-                        C * (int)sizeof(E), lane);
-            mma(c4[t], a, bf, E());
+        for (int t = 0; t < 4; ++t) {
+          uint32_t bf[2];
+          const int n0 = j0 + (nb + t) * 8;
+          load_frag_b(bf, w1 + ((size_t)n0 * C + k0) * sizeof(E),
+                      C * (int)sizeof(E), lane);
+          mma(c4[t], a, bf, E());
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = mt * 16 + g8 + (e >> 1) * 8;
+          const int jl = (nb + t) * 8 + tq * 2 + (e & 1);
+          const int j = j0 + jl;
+          if constexpr (INT8) {
+            hb[r * hs + jl] = up_static(c4[t][e], p.s1[j], p.b1[j], p.i2[j]);
+          } else {
+            hb[r * hs + jl] =
+                __float2bfloat16_rn(gelu_tanh(c4[t][e] + p.b1[j]));
           }
         }
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = mt * 16 + g8 + (e >> 1) * 8;
-            const int jl = (nb + t) * 8 + tq * 2 + (e & 1);
-            const int j = j0 + jl;
-            if constexpr (DYN) {
-              const float h = gelu_tanh(
-                  (float)c4[t][e] * nsc[r] * p.s1[j] + p.b1[j]);
-              if (scan) {
-                gmax[e >> 1] = fmaxf(gmax[e >> 1], fabsf(h));
-              } else {
-                hb[r * hs + jl] = quant_row(h, asc[r]);
-              }
-            } else if constexpr (INT8) {
-              hb[r * hs + jl] = up_static(c4[t][e], p.s1[j], p.b1[j],
-                                          p.i2[j]);
-            } else {
-              hb[r * hs + jl] =
-                  __float2bfloat16_rn(gelu_tanh(c4[t][e] + p.b1[j]));
-            }
-          }
-      }
-      if (DYN && scan) continue;  // pass 1: no pw2, nothing shared written
-      __syncthreads();
-      // pw2 partial [kTM, C] += hidden chunk @ w2[:, j0:j0+kHC]
-      const int ntn = C / 8;
-#pragma unroll 2
-      for (int t = warp; t < 2 * ntn; t += kThreads / 32) {
-        const int mt = t & 1, n0 = (t >> 1) * 8;
-        Acc c4[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
-#pragma unroll
-        for (int k0 = 0; k0 < kHC; k0 += M::kK) {
-          uint32_t a[4], bf[2];
-          load_frag_a(a,
-                      reinterpret_cast<const unsigned char*>(
-                          hb + (mt * 16) * hs + k0),
-                      hs * (int)sizeof(E), lane);
-          load_frag_b(bf, w2 + ((size_t)n0 * HD + j0 + k0) * sizeof(E),
-                      HD * (int)sizeof(E), lane);
-          mma(c4, a, bf, E());
-        }
-        Acc* dst = acc + (mt * 16 + g8) * as + n0 + tq * 2;
-        dst[0] += c4[0];
-        dst[1] += c4[1];
-        dst[8 * as] += c4[2];
-        dst[8 * as + 1] += c4[3];
-      }
-      __syncthreads();
     }
+    __syncthreads();
+    // pw2 partial [kTM, C] += hidden chunk @ w2[:, j0:j0+kHC]
+    const int ntn = C / 8;
+#pragma unroll 2
+    for (int t = warp; t < 2 * ntn; t += kThreads / 32) {
+      const int mt = t & 1, n0 = (t >> 1) * 8;
+      Acc c4[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+#pragma unroll
+      for (int k0 = 0; k0 < kHC; k0 += M::kK) {
+        uint32_t a[4], bf[2];
+        load_frag_a(a,
+                    reinterpret_cast<const unsigned char*>(
+                        hb + (mt * 16) * hs + k0),
+                    hs * (int)sizeof(E), lane);
+        load_frag_b(bf, w2 + ((size_t)n0 * HD + j0 + k0) * sizeof(E),
+                    HD * (int)sizeof(E), lane);
+        mma(c4, a, bf, E());
+      }
+      Acc* dst = acc + (mt * 16 + g8) * as + n0 + tq * 2;
+      dst[0] += c4[0];
+      dst[1] += c4[1];
+      dst[8 * as] += c4[2];
+      dst[8 * as + 1] += c4[3];
+    }
+    __syncthreads();
   }
 
   // 3. epilogue: the block output of row r, channel c, from x's value xv
-  // (the head's as kernel A's GEMM 2 epilogue computes it: block_out)
+  // (as kernel A's GEMM 2 epilogue computes it: block_out), then each
+  // row's noisy argmax into the histogram
   auto out_val = [&](float xv, int r, int c) -> float {
-    if constexpr (DYN) {
-      return xv + ((float)acc[r * as + c] * asc[r] * p.s2[c] + p.b2[c]) *
-                      p.g[c];
-    } else if constexpr (INT8) {
+    if constexpr (INT8) {
       return block_out(xv, (float)acc[r * as + c], p.s2[c], p.b2[c], p.g[c]);
     } else {
       return block_out(xv, acc[r * as + c], 1.0f, p.b2[c], p.g[c]);
     }
   };
-  if constexpr (!HEAD) {
-    T* out = static_cast<T*>(p.out);
-    // the residual is x, read through a pointer taken here: reusing ``x``
-    // changed the f32-tap instantiations' code and made them 4-8 % slower
-    // (H100, same registers)
-    const T* res = static_cast<const T*>(p.x);
-    for (int idx = tid; idx < kTM * C; idx += kThreads) {
-      const int r = idx / C, c = idx - r * C, row = row0 + r;
-      if (row >= total) continue;
-      const size_t o = (size_t)row * C + c;
-      store_as(out + o, out_val(to_f32(res[o]), r, c));
-    }
-  } else {
-    for (int r = warp; r < kTM; r += kThreads / 32) {
-      const int row = row0 + r;
-      if (row >= total) break;
-      const int b = row / HW, patch = row - b * HW;
-      const T* xr = x + (size_t)row * C;
-      const int win = noisy_argmax_row(
-          [&](int c) { return out_val(to_f32(xr[c]), r, c); }, C,
-          p.noise ? p.noise + (size_t)row * C : nullptr, p.key,
-          (uint32_t)patch, (uint32_t)b, lane);
-      if (lane == 0) atomicAdd(p.counts + (size_t)b * C + win, 1.0f);
-    }
+  for (int r = warp; r < kTM; r += kThreads / 32) {
+    const int row = row0 + r;
+    if (row >= total) break;
+    const int b = row / HW, patch = row - b * HW;
+    const T* xr = x + (size_t)row * C;
+    const int win = noisy_argmax_row(
+        [&](int c) { return out_val(to_f32(xr[c]), r, c); }, C,
+        p.noise ? p.noise + (size_t)row * C : nullptr, p.key,
+        (uint32_t)patch, (uint32_t)b, lane);
+    if (lane == 0) atomicAdd(p.counts + (size_t)b * C + win, 1.0f);
   }
 }
 
-// Host side: pick the instantiation and launch on ``stream``. Kernel C
-// (HEAD) takes ``mode`` kQBf16 or kQStatic, as the TPU's fused head does;
-// kernel A's body (!HEAD) kQDyn only, with DWBF for bf16 taps.
-template <bool HEAD, bool DWBF = false>
+// Host side: pick the instantiation (``mode`` kQBf16 or kQStatic, as the
+// TPU's fused head takes) and launch on ``stream``.
 inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
                                       int mode, cudaStream_t stream) {
-  if (p.C % 32 != 0 || (HEAD ? mode != kQBf16 && mode != kQStatic
-                             : mode != kQDyn))
+  if (p.C % 32 != 0 || (mode != kQBf16 && mode != kQStatic))
     return cudaErrorInvalidValue;
   const int total = p.B * p.H * p.W;
   const dim3 grid((total + kTM - 1) / kTM);
-  const size_t smem = mode == kQDyn      ? block_smem_bytes<kQDyn>(p.C)
-                      : mode == kQStatic ? block_smem_bytes<kQStatic>(p.C)
-                                         : block_smem_bytes<kQBf16>(p.C);
+  const size_t smem = mode == kQStatic ? block_smem_bytes<kQStatic>(p.C)
+                                       : block_smem_bytes<kQBf16>(p.C);
   auto go = [&](auto kernel) -> cudaError_t {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -604,29 +521,21 @@ inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
     return cudaGetLastError();
   };
   using BF = __nv_bfloat16;
-  if constexpr (!HEAD) {
-    return x_bf16 ? go(fused_block_kernel<BF, kQDyn, HEAD, DWBF>)
-                  : go(fused_block_kernel<float, kQDyn, HEAD, DWBF>);
-  } else {
-    if (x_bf16) {
-      return mode == kQStatic
-                 ? go(fused_block_kernel<BF, kQStatic, HEAD, DWBF>)
-                 : go(fused_block_kernel<BF, kQBf16, HEAD, DWBF>);
-    }
-    return mode == kQStatic
-               ? go(fused_block_kernel<float, kQStatic, HEAD, DWBF>)
-               : go(fused_block_kernel<float, kQBf16, HEAD, DWBF>);
-  }
+  if (x_bf16)
+    return mode == kQStatic ? go(fused_block_kernel<BF, kQStatic>)
+                            : go(fused_block_kernel<BF, kQBf16>);
+  return mode == kQStatic ? go(fused_block_kernel<float, kQStatic>)
+                          : go(fused_block_kernel<float, kQBf16>);
 }
 
 inline BlockParams make_block_params(
-    const void* x, void* out, int B, int H, int W, int C, const float* dwk,
+    const void* x, int B, int H, int W, int C, const float* dwk,
     const float* dwb, const float* lns, const float* lnb, const void* w1,
     const float* s1, const float* b1, const float* i1, const void* w2,
     const float* s2, const float* b2, const float* i2, const float* g,
     float eps) {
   BlockParams p;
-  p.x = x; p.out = out; p.B = B; p.H = H; p.W = W; p.C = C;
+  p.x = x; p.B = B; p.H = H; p.W = W; p.C = C;
   p.dwk = dwk; p.dwb = dwb; p.lns = lns; p.lnb = lnb;
   p.w1 = w1; p.s1 = s1; p.b1 = b1; p.i1 = i1;
   p.w2 = w2; p.s2 = s2; p.b2 = b2; p.i2 = i2;

@@ -5,7 +5,8 @@
 //
 // Replaces count_pipnet_tpu/ops/pallas/fused_block.py:fused_block_apply_padded
 // (:358) and :fused_block_apply (:499), with the bf16, int8-static and
-// dynamic int8 bodies of both; ``dw_bf16``: the depthwise taps in bf16 (the
+// dynamic int8 bodies of both (_kernel_int8, :250, and _kernel_int8_pad,
+// :313, in the dynamic mode); ``dw_bf16``: the depthwise taps in bf16 (the
 // TPU's tap_dtype=bfloat16) in any mode. Bound to Python with ctypes
 // (count_pipnet_tpu_torch/ops/fused_block.py).
 //
@@ -14,7 +15,8 @@
 // kernel keeps the 4C-wide hidden activation in VMEM; on Hopper a 128-row
 // wgmma tile's GEMM 2 sums at C = 768 would be a [128, 768] f32
 // accumulator, 384 KB, which no SM holds (K5's reasoning, fused_mlp.cu). So
-// the bf16 and int8-static modes are three launches on the stream:
+// kernel A is launches on the stream, three in the bf16 and int8-static
+// modes:
 //   a. block_prologue_kernel: depthwise 7x7 + bias, LayerNorm, then the cast
 //      (bf16) or the static quantization (int8: quant_scaled(n, i1)) into
 //      n [R, C]. Steps 1a and 1b of block.cuh's body through the same
@@ -30,8 +32,24 @@
 // each way in bf16, 5 R C in int8. The int8 sums are exact, and every step
 // of the static mode's arithmetic is block.cuh's pinned function, which
 // kernel C calls too: its output is the bits kernel C takes its argmax of.
-// The dynamic int8 mode (mode 2) stays on block.cuh's one-kernel body: its
-// GELU scale spans the whole 4C row.
+//
+// The dynamic int8 mode quantizes each row with its own scale: the LN
+// output over its C values, the GELU output over its 4C. A GEMM 1 tile
+// holds at most 256 of a row's 4C GELU values, so no tile knows the row's
+// scale. Four launches, all the s8 GEMMs on the core:
+//   a. the prologue with a per-row scale: a warp owns a row, takes the
+//      abs-max of its LN values, writes n [R, C] int8 and nsc [R] f32
+//      (row_scale, quant_row), and zeroes the row's slot of amax [R];
+//   b1. GEMM 1, scan pass: the epilogue up_dyn, and each row's |GELU|
+//      maximum over the tile (the threads that hold one row reduce first)
+//      atomicMax'ed into amax as float bits; it writes nothing else;
+//   b2. GEMM 1 again, quantize pass: up_dyn, then quant_row with the row's
+//      scale row_scale(amax) -> int8 hidden [R, 4C], and that scale into
+//      asc [R]. The s32 sums are exact and up_dyn is pinned, so both passes
+//      compute the same bits; recomputing GEMM 1 (8 R C^2 more operations)
+//      keeps the hidden scratch in int8, where an f32 hidden activation and
+//      a row-quantize pass would move about 31 R C bytes more;
+//   c. GEMM 2, the s8 mode with the epilogue block_out(x, sum * asc, ...).
 #include "block.cuh"
 #include "sm90.cuh"
 
@@ -49,10 +67,13 @@ namespace {
 // a. the prologue: a CTA owns kTM rows, as block.cuh's body does, and two
 // CTAs share an SM (at most 128 registers a thread). Unbounded, the
 // bf16-tap instantiations took 161-163 registers and one CTA an SM; kernel
-// A ran 5-17 % slower so (H100).
-template <typename T, bool INT8, bool DWBF>
+// A ran 5-17 % slower so (H100). ``Q``: the operand mode (block.cuh: kQ*);
+// ``nsc`` and ``amax`` (kQDyn): each row's scale, and its GELU abs-max
+// slot, zeroed here for GEMM 1's scan pass (null: left alone).
+template <typename T, int Q, bool DWBF>
 __global__ void __launch_bounds__(kThreads, 2)
-    block_prologue_kernel(const BlockParams p, void* n) {
+    block_prologue_kernel(const BlockParams p, void* n, float* nsc,
+                          int* amax) {
   extern __shared__ __align__(16) unsigned char pro_smem[];
   float* accf = reinterpret_cast<float*>(pro_smem);  // [kTM, C + 8]
   const int C = p.C, total = p.B * p.H * p.W, as = C + 8;
@@ -65,7 +86,23 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (row >= total) break;
     const float* d = accf + r * as;
     const float2 st = ln_stats(d, C, p.eps, lane);
-    if constexpr (INT8) {
+    if constexpr (Q == kQDyn) {
+      // the row's LN output in place of its depthwise output, its abs-max,
+      // then the row quantized with its own scale
+      float m = 0.0f;
+      for (int c = lane; c < C; c += 32) {
+        const float v = ln_value(d[c], st, p.lns[c], p.lnb[c]);
+        accf[r * as + c] = v;
+        m = fmaxf(m, fabsf(v));
+      }
+      const float sc = row_scale(warp_max(m));
+      int8_t* o = static_cast<int8_t*>(n) + (size_t)row * C;
+      for (int c = lane; c < C; c += 32) o[c] = quant_row(d[c], sc);
+      if (lane == 0) {
+        nsc[row] = sc;
+        if (amax != nullptr) amax[row] = 0;
+      }
+    } else if constexpr (Q == kQStatic) {
       int8_t* o = static_cast<int8_t*>(n) + (size_t)row * C;
       for (int c = lane; c < C; c += 32)
         o[c] = quant_scaled(ln_value(d[c], st, p.lns[c], p.lnb[c]), p.i1[c]);
@@ -98,6 +135,59 @@ struct UpStatic {
   }
 };
 
+// b1. GEMM 1's dynamic scan pass: amax[r] = max(amax[r], |up_dyn(sum)|)
+// over the eight columns, as float bits (non-negative floats order as their
+// int bits, so atomicMax takes the max in any order). The threads of a
+// warp that hold the same row (16 of a 128-wide tile) reduce first, so a
+// row takes one atomic per warp and tile.
+struct UpDynScan {
+  const float* nsc;
+  const float* s1;
+  const float* b1;
+  int* amax;
+  __device__ __forceinline__ void operator()(int r, int c,
+                                             const int (&v)[8]) const {
+    float s[8], b[8];
+    load8(s1 + c, s);
+    load8(b1 + c, b);
+    const float sc = nsc[r];
+    float m = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      m = fmaxf(m, fabsf(up_dyn(v[i], sc, s[i], b[i])));
+    const unsigned same = __match_any_sync(__activemask(), r);
+    const int top = __reduce_max_sync(same, __float_as_int(m));
+    if ((int)(threadIdx.x & 31) == __ffs(same) - 1) atomicMax(amax + r, top);
+  }
+};
+
+// b2. GEMM 1's dynamic quantize pass: hidden = quant_row(up_dyn(sum),
+// row_scale(amax[r])), int8, and the row's scale into asc (by the thread of
+// column 0)
+struct UpDynQuant {
+  const float* nsc;
+  const float* s1;
+  const float* b1;
+  const int* amax;
+  float* asc;
+  int8_t* h;
+  int N;
+  __device__ __forceinline__ void operator()(int r, int c,
+                                             const int (&v)[8]) const {
+    float s[8], b[8];
+    load8(s1 + c, s);
+    load8(b1 + c, b);
+    const float sc = nsc[r], q = row_scale(__int_as_float(amax[r]));
+    if (c == 0) asc[r] = q;
+    uint2 u;
+    int8_t* o = reinterpret_cast<int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      o[i] = quant_row(up_dyn(v[i], sc, s[i], b[i]), q);
+    *reinterpret_cast<uint2*>(h + (size_t)r * N + c) = u;
+  }
+};
+
 // c. GEMM 2's int8-static epilogue: out = block_out(x, sum), x's type
 template <typename T>
 struct DownStatic {
@@ -118,6 +208,34 @@ struct DownStatic {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
       xv[i] = block_out(xv[i], (float)v[i], s[i], b[i], gm[i]);
+    store8(out + o, xv);
+  }
+};
+
+// c. GEMM 2's dynamic epilogue: the same with the sum first scaled by its
+// row's GELU scale, as the plain version does: block_out(x, sum * asc[r])
+template <typename T>
+struct DownDyn {
+  const float* asc;
+  const float* s2;
+  const float* b2;
+  const float* g;
+  const T* x;
+  T* out;
+  int N;
+  __device__ __forceinline__ void operator()(int r, int c,
+                                             const int (&v)[8]) const {
+    const size_t o = (size_t)r * N + c;
+    float s[8], b[8], gm[8], xv[8];
+    load8(s2 + c, s);
+    load8(b2 + c, b);
+    load8(g + c, gm);
+    load8(x + o, xv);
+    const float a = asc[r];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      xv[i] =
+          block_out(xv[i], __fmul_rn((float)v[i], a), s[i], b[i], gm[i]);
     store8(out + o, xv);
   }
 };
@@ -147,8 +265,9 @@ cudaError_t gemm_s8(bool up, int tile, const void* a, const void* b, int M,
   }
 }
 
-cudaError_t prologue(const BlockParams& p, void* n, int dw_bf16, int x_bf16,
-                     int int8, cudaStream_t st) {
+template <typename T, bool DWBF>
+cudaError_t prologue_as(const BlockParams& p, void* n, float* nsc,
+                        int* amax, int mode, cudaStream_t st) {
   const int total = p.B * p.H * p.W;
   const dim3 grid((total + kTM - 1) / kTM);
   const int smem = kTM * (p.C + 8) * 4;
@@ -156,118 +275,151 @@ cudaError_t prologue(const BlockParams& p, void* n, int dw_bf16, int x_bf16,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, st>>>(p, n);
+    kernel<<<grid, kThreads, smem, st>>>(p, n, nsc, amax);
     return cudaGetLastError();
   };
-  using BF = __nv_bfloat16;
-  const int k = (dw_bf16 ? 4 : 0) + (x_bf16 ? 2 : 0) + (int8 ? 1 : 0);
-  switch (k) {
-    case 0: return go(block_prologue_kernel<float, false, false>);
-    case 1: return go(block_prologue_kernel<float, true, false>);
-    case 2: return go(block_prologue_kernel<BF, false, false>);
-    case 3: return go(block_prologue_kernel<BF, true, false>);
-    case 4: return go(block_prologue_kernel<float, false, true>);
-    case 5: return go(block_prologue_kernel<float, true, true>);
-    case 6: return go(block_prologue_kernel<BF, false, true>);
-    default: return go(block_prologue_kernel<BF, true, true>);
+  switch (mode) {
+    case kQBf16: return go(block_prologue_kernel<T, kQBf16, DWBF>);
+    case kQStatic: return go(block_prologue_kernel<T, kQStatic, DWBF>);
+    case kQDyn: return go(block_prologue_kernel<T, kQDyn, DWBF>);
+    default: return cudaErrorInvalidValue;
   }
 }
 
+cudaError_t prologue(const BlockParams& p, void* n, float* nsc, int* amax,
+                     int dw_bf16, int x_bf16, int mode, cudaStream_t st) {
+  using BF = __nv_bfloat16;
+  if (dw_bf16)
+    return x_bf16 ? prologue_as<BF, true>(p, n, nsc, amax, mode, st)
+                  : prologue_as<float, true>(p, n, nsc, amax, mode, st);
+  return x_bf16 ? prologue_as<BF, false>(p, n, nsc, amax, mode, st)
+                : prologue_as<float, false>(p, n, nsc, amax, mode, st);
+}
+
+// The dynamic mode's GEMM 1 passes (``passes``): bit 0 the scan, bit 1 the
+// quantize pass.
+enum : int { kScan = 1, kQuantize = 2 };
+
 cudaError_t up(const void* n, const void* w1, const float* s1,
-               const float* b1, const float* i2, void* h, int int8, int R,
-               int C, int tile, cudaStream_t st) {
-  if (!int8)
+               const float* b1, const float* i2, void* h, const float* nsc,
+               int* amax, float* asc, int mode, int passes, int R, int C,
+               int tile, cudaStream_t st) {
+  if (mode == kQBf16)
     return tile ? cudaErrorInvalidValue
                 : (cudaError_t)cpt_mlp_up_gelu(n, w1, b1, h, R, C, st);
-  const UpStatic epi{s1, b1, i2, static_cast<int8_t*>(h), 4 * C};
-  return gemm_s8(true, tile, n, w1, R, 4 * C, C, epi, st);
+  int8_t* hq = static_cast<int8_t*>(h);
+  if (mode == kQStatic)
+    return gemm_s8(true, tile, n, w1, R, 4 * C, C,
+                   UpStatic{s1, b1, i2, hq, 4 * C}, st);
+  if (mode != kQDyn || passes < kScan || passes > (kScan | kQuantize))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (passes & kScan)
+    err = gemm_s8(true, tile, n, w1, R, 4 * C, C,
+                  UpDynScan{nsc, s1, b1, amax}, st);
+  if (err == cudaSuccess && (passes & kQuantize))
+    err = gemm_s8(true, tile, n, w1, R, 4 * C, C,
+                  UpDynQuant{nsc, s1, b1, amax, asc, hq, 4 * C}, st);
+  return err;
 }
 
 cudaError_t down(const void* h, const void* w2, const float* s2,
-                 const float* b2, const float* g, const void* x, int x_bf16,
-                 void* out, int int8, int R, int C, int tile,
-                 cudaStream_t st) {
-  if (!int8)
+                 const float* b2, const float* g, const float* asc,
+                 const void* x, int x_bf16, void* out, int mode, int R, int C,
+                 int tile, cudaStream_t st) {
+  if (mode == kQBf16)
     return tile ? cudaErrorInvalidValue
                 : (cudaError_t)cpt_mlp_down_residual(h, w2, b2, g, x, x_bf16,
                                                      out, R, C, st);
   using BF = __nv_bfloat16;
-  if (x_bf16) {
-    const DownStatic<BF> epi{s2, b2, g, static_cast<const BF*>(x),
-                             static_cast<BF*>(out), C};
+  auto go = [&](auto epi) {
     return gemm_s8(false, tile, h, w2, R, C, 4 * C, epi, st);
-  }
-  const DownStatic<float> epi{s2, b2, g, static_cast<const float*>(x),
-                              static_cast<float*>(out), C};
-  return gemm_s8(false, tile, h, w2, R, C, 4 * C, epi, st);
+  };
+  const BF* xb = static_cast<const BF*>(x);
+  const float* xf = static_cast<const float*>(x);
+  BF* ob = static_cast<BF*>(out);
+  float* of = static_cast<float*>(out);
+  if (mode == kQStatic)
+    return x_bf16 ? go(DownStatic<BF>{s2, b2, g, xb, ob, C})
+                  : go(DownStatic<float>{s2, b2, g, xf, of, C});
+  if (mode == kQDyn)
+    return x_bf16 ? go(DownDyn<BF>{asc, s2, b2, g, xb, ob, C})
+                  : go(DownDyn<float>{asc, s2, b2, g, xf, of, C});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace cpt
 
-// Kernel A. ``mode``: 0 bf16, 1 int8 with static scales (three launches;
-// ``n`` [R, C] and ``h`` [R, 4C] are scratch of the GEMM operand type, and
-// x, out, w1, w2 are 16-byte aligned), 2 int8 with dynamic per-row scales
-// (block.cuh's body, one launch; n and h unused).
+// Kernel A. ``mode`` (block.cuh: kQ*): 0 bf16, 1 int8 with static scales,
+// 2 int8 with dynamic per-row scales. Scratch from the caller: ``n`` [R, C]
+// and ``h`` [R, 4C] of the GEMM operand type, and (mode 2) ``rs`` [3, R]
+// f32: the rows' LN scales, GELU abs-max and GELU scales. x, out, w1, w2
+// are 16-byte aligned.
 extern "C" int cpt_fused_block(
     const void* x, void* out, int dw_bf16, int x_bf16, int mode, int B,
     int H, int W, int C, const float* dwk, const float* dwb, const float* lns,
     const float* lnb, const void* w1, const float* s1, const float* b1,
     const float* i1, const void* w2, const float* s2, const float* b2,
-    const float* i2, const float* g, float eps, void* n, void* h,
+    const float* i2, const float* g, float eps, void* n, void* h, float* rs,
     void* stream) {
-  const cpt::BlockParams p = cpt::make_block_params(
-      x, out, B, H, W, C, dwk, dwb, lns, lnb, w1, s1, b1, i1, w2, s2, b2, i2,
-      g, eps);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == cpt::kQDyn)
-    return (int)(dw_bf16
-                     ? cpt::launch_fused_block<false, true>(p, x_bf16, mode,
-                                                            st)
-                     : cpt::launch_fused_block<false>(p, x_bf16, mode, st));
   const int R = B * H * W;
-  if (C % 32 != 0 || R <= 0 || (mode != cpt::kQBf16 && mode != cpt::kQStatic))
+  if (C % 32 != 0 || R <= 0 || (mode == cpt::kQDyn && rs == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int int8 = mode == cpt::kQStatic;
-  cudaError_t err = cpt::prologue(p, n, dw_bf16, x_bf16, int8, st);
+  const cpt::BlockParams p = cpt::make_block_params(
+      x, B, H, W, C, dwk, dwb, lns, lnb, w1, s1, b1, i1, w2, s2, b2, i2, g,
+      eps);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* nsc = rs;
+  int* amax = rs ? reinterpret_cast<int*>(rs + R) : nullptr;
+  float* asc = rs ? rs + 2 * R : nullptr;
+  cudaError_t err = cpt::prologue(p, n, nsc, amax, dw_bf16, x_bf16, mode, st);
   if (err == cudaSuccess)
-    err = cpt::up(n, w1, s1, b1, i2, h, int8, R, C, 0, st);
+    err = cpt::up(n, w1, s1, b1, i2, h, nsc, amax, asc, mode,
+                  cpt::kScan | cpt::kQuantize, R, C, 0, st);
   if (err == cudaSuccess)
-    err = cpt::down(h, w2, s2, b2, g, x, x_bf16, out, int8, R, C, 0, st);
+    err = cpt::down(h, w2, s2, b2, g, asc, x, x_bf16, out, mode, R, C, 0, st);
   return (int)err;
 }
 
-// Kernel A's three launches on their own, to hold each against its plain
-// version and to time it; ``tile`` (int8 GEMMs): 0 the chosen tile, 1-5
+// Kernel A's launches on their own, to hold each against its plain version
+// and to time it. Mode 2: the prologue writes ``nsc`` [R] and zeroes
+// ``amax`` [R] (when not null); ``passes`` picks GEMM 1's scan pass (1, into
+// ``amax``), quantize pass (2, from ``amax``, writes ``asc`` [R]) or both
+// (3); GEMM 2 reads ``asc``. ``tile`` (int8 GEMMs): 0 the chosen tile, 1-5
 // the candidates.
-extern "C" int cpt_block_prologue(const void* x, void* n, int dw_bf16,
-                                  int x_bf16, int int8, int B, int H, int W,
-                                  int C, const float* dwk, const float* dwb,
+extern "C" int cpt_block_prologue(const void* x, void* n, float* nsc,
+                                  int* amax, int dw_bf16, int x_bf16,
+                                  int mode, int B, int H, int W, int C,
+                                  const float* dwk, const float* dwb,
                                   const float* lns, const float* lnb,
                                   const float* i1, float eps, void* stream) {
   if (C % 32 != 0 || B * H * W <= 0) return (int)cudaErrorInvalidValue;
   const cpt::BlockParams p = cpt::make_block_params(
-      x, nullptr, B, H, W, C, dwk, dwb, lns, lnb, nullptr, nullptr, nullptr,
-      i1, nullptr, nullptr, nullptr, nullptr, nullptr, eps);
-  return (int)cpt::prologue(p, n, dw_bf16, x_bf16, int8,
+      x, B, H, W, C, dwk, dwb, lns, lnb, nullptr, nullptr, nullptr, i1,
+      nullptr, nullptr, nullptr, nullptr, nullptr, eps);
+  return (int)cpt::prologue(p, n, nsc, amax, dw_bf16, x_bf16, mode,
                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cpt_block_up(const void* n, const void* w1, const float* s1,
                             const float* b1, const float* i2, void* h,
-                            int int8, int R, int C, int tile, void* stream) {
+                            const float* nsc, int* amax, float* asc,
+                            int mode, int passes, int R, int C, int tile,
+                            void* stream) {
   if (tile < 0 || tile > cpt::kTiles) return (int)cudaErrorInvalidValue;
-  return (int)cpt::up(n, w1, s1, b1, i2, h, int8, R, C, tile,
-                      static_cast<cudaStream_t>(stream));
+  return (int)cpt::up(n, w1, s1, b1, i2, h, nsc, amax, asc, mode, passes, R,
+                      C, tile, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int cpt_block_down(const void* h, const void* w2, const float* s2,
-                              const float* b2, const float* g, const void* x,
-                              int x_bf16, void* out, int int8, int R, int C,
-                              int tile, void* stream) {
+                              const float* b2, const float* g,
+                              const float* asc, const void* x, int x_bf16,
+                              void* out, int mode, int R, int C, int tile,
+                              void* stream) {
   if (tile < 0 || tile > cpt::kTiles) return (int)cudaErrorInvalidValue;
-  return (int)cpt::down(h, w2, s2, b2, g, x, x_bf16, out, int8, R, C, tile,
-                        static_cast<cudaStream_t>(stream));
+  return (int)cpt::down(h, w2, s2, b2, g, asc, x, x_bf16, out, mode, R, C,
+                        tile, static_cast<cudaStream_t>(stream));
 }
 
 // The GEMM core's s8 mode alone: D [M, N] s32 = A [M, K] . B [N, K]^T,

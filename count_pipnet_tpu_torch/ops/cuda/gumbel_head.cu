@@ -77,11 +77,11 @@ extern "C" int cpt_fused_block_gumbel_counts(
     const float* g, float eps, const float* noise, float* counts,
     unsigned long long seed, void* stream) {
   cpt::BlockParams p = cpt::make_block_params(
-      x, nullptr, B, H, W, C, dwk, dwb, lns, lnb, w1, s1, b1, i1, w2, s2, b2,
-      i2, g, eps);
+      x, B, H, W, C, dwk, dwb, lns, lnb, w1, s1, b1, i1, w2, s2, b2, i2, g,
+      eps);
   p.counts = counts;
   p.noise = noise;
   p.key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  return (int)cpt::launch_fused_block<true>(
+  return (int)cpt::launch_fused_block(
       p, x_bf16, int8, static_cast<cudaStream_t>(stream));
 }

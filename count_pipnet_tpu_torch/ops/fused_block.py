@@ -15,20 +15,23 @@ halo with bounds checks). Three GEMM modes, as on the TPU:
 * int8-dynamic (``int8=True`` without ``act_scales``): per-output-channel
   int8 weights (:func:`quantize_block_weights`) and, per row, the LN output
   quantized over C and the GELU output over 4C with ``ops.int8_gemm.
-  quant_rows`` (the TPU's ``_quant_rows``). The kernel walks the hidden
-  dimension twice to know each row's GELU scale (ops/cuda/block.cuh); its
-  launches count as ``fused_block_int8_dyn``.
+  quant_rows`` (the TPU's ``_quant_rows``); its launches count as
+  ``fused_block_int8_dyn``.
 
-In the bf16 and int8-static modes kernel A is three launches
-(ops/cuda/fused_block.cu), and its plain version the composition of the
-same three stages: :func:`block_prologue_plain` (depthwise conv, LayerNorm,
-the GEMM operand ``n`` in bf16 or int8), :func:`block_up_plain` (GEMM 1,
-GELU, the hidden operand in bf16 or int8) and :func:`block_down_plain`
-(GEMM 2, layer scale, residual). :func:`block_prologue`, :func:`block_up`,
+Kernel A is launches on the stream (ops/cuda/fused_block.cu), and its plain
+version the composition of the same stages: :func:`block_prologue_plain`
+(depthwise conv, LayerNorm, the GEMM operand ``n``: bf16, int8, or in the
+dynamic mode int8 with its rows' scales, ``(nq, nsc)``),
+:func:`block_up_plain` (GEMM 1, GELU, the hidden operand: bf16, int8, or
+``(aq, asc)``) and :func:`block_down_plain` (GEMM 2, layer scale,
+residual). The dynamic mode runs GEMM 1 twice on the card: a scan pass
+that takes each row's GELU abs-max (:func:`block_up_scan`,
+:func:`block_up_scan_plain`), then a quantize pass with the scale it
+implies. :func:`block_prologue`, :func:`block_up_scan`, :func:`block_up`,
 :func:`block_down` and :func:`sm90_gemm_s8` (the s8 mode of the GEMM core
-both int8 GEMMs run on) launch one stage alone, so that a check can hold
-each against its plain version; a call of :func:`fused_block` counts as
-one launch of kernel A.
+all the int8 GEMMs run on) launch one stage alone, so that a check can
+hold each against its plain version; a call of :func:`fused_block` counts
+as one launch of kernel A.
 
 ``dw_bf16=True`` runs the 49 depthwise taps in bf16, in any of the three
 modes, as the TPU's ``tap_dtype=bfloat16`` does
@@ -63,8 +66,9 @@ from .int8_gemm import quant_rows
 __all__ = ["quantize_block_weights", "quantize_block_weights_folded",
            "prepare_block", "dwconv7_bf16_taps_plain", "fused_block",
            "fused_block_plain", "block_residual_plain", "block_prologue",
-           "block_prologue_plain", "block_up", "block_up_plain",
-           "block_down", "block_down_plain", "sm90_gemm_s8",
+           "block_prologue_plain", "block_up_scan", "block_up_scan_plain",
+           "block_up", "block_up_plain", "block_down", "block_down_plain",
+           "sm90_gemm_s8",
            "block_body_plain", "fused_block_ad", "FusedBlock"]
 
 K = 7
@@ -180,28 +184,44 @@ def _quant_static(v, inv):
     return torch.round(torch.clamp(v * inv, -127.0, 127.0)).to(torch.int8)
 
 
-def _static_or_bf16(pb, what):
-    if pb["dynamic"]:
-        raise ValueError(f"{what}: the dynamic int8 mode is one launch "
-                         f"(fused_block), it has no stages")
-
-
 def block_prologue_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
-    """Stage a of kernel A's bf16 and int8-static modes: the depthwise
-    conv, LayerNorm, and GEMM 1's operand ``n``: bf16, or int8 with the
-    static scale (``round(clip(n * i1))``). [B, H, W, C] -> the same shape
-    in bf16 or int8."""
-    _static_or_bf16(pb, "block_prologue_plain")
+    """Stage a of kernel A: the depthwise conv, LayerNorm, and GEMM 1's
+    operand ``n``: bf16; int8 with the static scale (``round(clip(n *
+    i1))``); or in the dynamic mode ``(nq, nsc)``, the rows quantized over
+    C (:func:`quant_rows`) as int8 and their f32 scales [..., 1]. [B, H, W,
+    C] -> the same shape in bf16 or int8."""
     n = _ln_plain(x, pb, eps, dw_bf16)
+    if pb["dynamic"]:
+        nq, nsc = quant_rows(n)
+        return nq.to(torch.int8), nsc
     return _quant_static(n, pb["i1"]) if pb["int8"] else n.to(torch.bfloat16)
 
 
-def block_up_plain(n, pb):
+def _up_dyn(n, pb):
+    """GEMM 1 of the dynamic mode on ``n = (nq, nsc)`` and its GELU (the
+    kernels' up_dyn), f32 ``[..., 4C]``: ``gelu_tanh(sum * nsc * s1 +
+    b1)``, exact sums in float64."""
+    nq, nsc = n
+    hid = (nq.double() @ pb["w1"].double().t()).float()
+    return F.gelu(hid * nsc * pb["s1"] + pb["b1"], approximate="tanh")
+
+
+def block_up_scan_plain(n, pb):
+    """The dynamic mode's GEMM 1 scan pass: each row's GELU abs-max, f32
+    [..., 1], from ``n = (nq, nsc)``."""
+    return _up_dyn(n, pb).abs().amax(dim=-1, keepdim=True)
+
+
+def block_up_plain(n, pb, amax=None):
     """Stage b: GEMM 1 ``n W1^T`` and its epilogue, ``[..., C] ->
     [..., 4C]``: int8 (exact sums in float64) ``gelu_tanh(sum * s1 + b1)``
-    quantized with ``i2``, or bf16 ``gelu_tanh(sum + b1)`` rounded to
-    bf16."""
-    _static_or_bf16(pb, "block_up_plain")
+    quantized with ``i2``; bf16 ``gelu_tanh(sum + b1)`` rounded to bf16; or
+    in the dynamic mode, from ``n = (nq, nsc)``, ``(aq, asc)``: the GELU
+    rows quantized over 4C as int8 and their f32 scales [..., 1], with the
+    rows' abs-max ``amax`` where it is given (the quantize pass alone)."""
+    if pb["dynamic"]:
+        aq, asc = quant_rows(_up_dyn(n, pb), amax)
+        return aq.to(torch.int8), asc
     if pb["int8"]:
         hid = (n.double() @ pb["w1"].double().t()).float()
         a = F.gelu(hid * pb["s1"] + pb["b1"], approximate="tanh")
@@ -211,7 +231,11 @@ def block_up_plain(n, pb):
 
 
 def _block_down_f32(h, x, pb):
-    if pb["int8"]:
+    if pb["dynamic"]:
+        aq, asc = h
+        y = (aq.double() @ pb["w2"].double().t()).float()
+        y = y * asc * pb["s2"] + pb["b2"]
+    elif pb["int8"]:
         y = (h.double() @ pb["w2"].double().t()).float()
         y = y * pb["s2"] + pb["b2"]
     else:
@@ -221,31 +245,21 @@ def _block_down_f32(h, x, pb):
 
 def block_down_plain(h, x, pb):
     """Stage c: GEMM 2 ``h W2^T`` and its epilogue, ``x + (sum * s2 + b2)
-    * g`` (int8, exact sums) or ``x + (sum + b2) * g`` (bf16), in
-    ``x.dtype``."""
-    _static_or_bf16(pb, "block_down_plain")
+    * g`` (int8, exact sums), ``x + (sum * asc * s2 + b2) * g`` (dynamic,
+    ``h = (aq, asc)``) or ``x + (sum + b2) * g`` (bf16), in ``x.dtype``."""
     return _block_down_f32(h, x, pb).to(x.dtype)
 
 
 def block_residual_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     """Plain PyTorch block on NHWC ``x``; returns the f32 block output
-    (before the cast to ``x.dtype``): in the bf16 and int8-static modes the
-    composition of the three stages' plain versions. The int8 GEMMs run in
-    float64, which holds their integer sums exactly. ``dw_bf16``: the
-    depthwise taps of :func:`dwconv7_bf16_taps_plain`. On a GPU, set
+    (before the cast to ``x.dtype``): the composition of the three stages'
+    plain versions. The int8 GEMMs run in float64, which holds their
+    integer sums exactly. ``dw_bf16``: the depthwise taps of
+    :func:`dwconv7_bf16_taps_plain`. On a GPU, set
     ``torch.backends.cudnn.allow_tf32 = False`` first: the f32 depthwise
     conv would otherwise run in TF32."""
-    if not pb["dynamic"]:
-        n = block_prologue_plain(x, pb, eps, dw_bf16)
-        return _block_down_f32(block_up_plain(n, pb), x, pb)
-    n = _ln_plain(x, pb, eps, dw_bf16)
-    nq, nsc = quant_rows(n)
-    hid = (nq.double() @ pb["w1"].double().t()).float()
-    hid = hid * nsc * pb["s1"] + pb["b1"]
-    aq, asc = quant_rows(F.gelu(hid, approximate="tanh"))
-    y = (aq.double() @ pb["w2"].double().t()).float()
-    y = y * asc * pb["s2"] + pb["b2"]
-    return x.to(torch.float32) + y * pb["g"]
+    n = block_prologue_plain(x, pb, eps, dw_bf16)
+    return _block_down_f32(block_up_plain(n, pb), x, pb)
 
 
 def fused_block_plain(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
@@ -274,16 +288,30 @@ def block_args(x, pb):
     """The kernel-A argument list shared with kernel C (ops/gumbel_head)."""
     p = _cuda.ptr
     b, h, w, c = x.shape
-    mode = 2 if pb["dynamic"] else int(pb["int8"])  # block.cuh: kQ*
-    return [int(x.dtype == torch.bfloat16), mode, b, h, w, c,
+    return [int(x.dtype == torch.bfloat16), _mode(pb), b, h, w, c,
             p(pb["dwk"]), p(pb["dwb"]), p(pb["lns"]), p(pb["lnb"]),
             p(pb["w1"]), p(pb["s1"]), p(pb["b1"]), p(pb["i1"]),
             p(pb["w2"]), p(pb["s2"]), p(pb["b2"]), p(pb["i2"]),
             p(pb["g"])]
 
 
+def _mode(pb):
+    """The GEMM operand mode (ops/cuda/block.cuh: kQBf16, kQStatic,
+    kQDyn)."""
+    return 2 if pb["dynamic"] else int(pb["int8"])
+
+
 def _operand_dtype(pb):
     return torch.int8 if pb["int8"] else torch.bfloat16
+
+
+def _row_vector(t, r, what):
+    """A per-row f32 vector ([..., 1], ``r`` rows) as a contiguous CUDA
+    tensor of ``r`` floats."""
+    if t.dtype != torch.float32 or t.numel() != r or t.device.type != "cuda":
+        raise ValueError(f"{what}: expected {r} f32 values on a CUDA device, "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    return t.detach().reshape(r).contiguous()
 
 
 def fused_block(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
@@ -296,21 +324,19 @@ def fused_block(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     if x.device.type != "cuda":
         raise ValueError(f"fused_block: unsupported device {x.device}")
     check_block_inputs(x, pb)
-    n = hid = None
-    if pb["dynamic"]:
-        if dw_bf16 and x.data_ptr() % 8:
-            raise ValueError("fused_block(dw_bf16=True) loads channel "
-                             "pairs: the plane must start 8-byte aligned")
-    else:
-        # the three launches' scratch: GEMM 1's and GEMM 2's operands
-        _aligned(x, "fused_block: the plane")
-        r, c = x.numel() // x.shape[-1], x.shape[-1]
-        n = torch.empty(r, c, dtype=_operand_dtype(pb), device=x.device)
-        hid = torch.empty(r, 4 * c, dtype=n.dtype, device=x.device)
+    _aligned(x, "fused_block: the plane")
+    # the launches' scratch: GEMM 1's and GEMM 2's operands and, in the
+    # dynamic mode, the rows' LN scales, GELU abs-max and GELU scales
+    r, c = x.numel() // x.shape[-1], x.shape[-1]
+    n = torch.empty(r, c, dtype=_operand_dtype(pb), device=x.device)
+    hid = torch.empty(r, 4 * c, dtype=n.dtype, device=x.device)
+    rs = torch.empty(3, r, dtype=torch.float32, device=x.device) \
+        if pb["dynamic"] else None
     out = torch.empty_like(x)
     code = _cuda.library().cpt_fused_block(
         x.data_ptr(), out.data_ptr(), int(dw_bf16), *block_args(x, pb),
-        float(eps), _cuda.ptr(n), _cuda.ptr(hid), _cuda.stream_ptr(x.device))
+        float(eps), n.data_ptr(), hid.data_ptr(), _cuda.ptr(rs),
+        _cuda.stream_ptr(x.device))
     _cuda.check(code, "fused_block")
     name = "fused_block_int8_dyn" if pb["dynamic"] else "fused_block"
     _cuda.count_launch(name + "_dwbf16" if dw_bf16 else name, x.shape[-1])
@@ -322,61 +348,101 @@ def block_prologue(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     (CPU)."""
     if x.device.type == "cpu":
         return block_prologue_plain(x, pb, eps, dw_bf16)
-    _static_or_bf16(pb, "block_prologue")
     check_block_inputs(x, pb)
     if dw_bf16 and x.data_ptr() % 8:
         raise ValueError("block_prologue(dw_bf16=True) loads channel pairs: "
                          "the plane must start 8-byte aligned")
     b, h, w, c = x.shape
     n = torch.empty(x.shape, dtype=_operand_dtype(pb), device=x.device)
+    nsc = torch.empty(b, h, w, 1, dtype=torch.float32, device=x.device) \
+        if pb["dynamic"] else None
     p = _cuda.ptr
     code = _cuda.library().cpt_block_prologue(
-        x.data_ptr(), n.data_ptr(), int(dw_bf16),
-        int(x.dtype == torch.bfloat16), int(pb["int8"]), b, h, w, c,
-        p(pb["dwk"]), p(pb["dwb"]), p(pb["lns"]), p(pb["lnb"]), p(pb["i1"]),
-        float(eps), _cuda.stream_ptr(x.device))
+        x.data_ptr(), n.data_ptr(), p(nsc), None, int(dw_bf16),
+        int(x.dtype == torch.bfloat16), _mode(pb), b, h, w, c, p(pb["dwk"]),
+        p(pb["dwb"]), p(pb["lns"]), p(pb["lnb"]), p(pb["i1"]), float(eps),
+        _cuda.stream_ptr(x.device))
     _cuda.check(code, "block_prologue")
-    return n
+    return (n, nsc) if pb["dynamic"] else n
 
 
-def block_up(n, pb, tile: int = 0):
-    """Kernel A's stage b (GEMM 1 and its epilogue) alone (CUDA), or
-    :func:`block_up_plain` (CPU). ``tile`` (int8): 0 the tile kernel A
-    takes, 1-5 the candidates it was chosen from (ops/cuda/fused_block.cu:
-    gemm_s8)."""
-    if n.device.type == "cpu":
-        return block_up_plain(n, pb)
-    _static_or_bf16(pb, "block_up")
-    c = n.shape[-1]
-    nf = _rows(n, c, "block_up", (_operand_dtype(pb),), tma=True)
-    h = torch.empty(*n.shape[:-1], 4 * c, dtype=n.dtype, device=n.device)
+def _up_launch(n, pb, passes, tile, amax=None):
+    """One call of kernel A's GEMM 1 entry on ``n`` (in the dynamic mode
+    ``(nq, nsc)``; ``passes`` 1 the scan into ``amax``, 2 the quantize
+    pass from it, 3 both): (hidden, row scales or None, amax or None)."""
+    nq, nsc = n if pb["dynamic"] else (n, None)
+    c = nq.shape[-1]
+    nf = _rows(nq, c, "block_up", (_operand_dtype(pb),), tma=True)
+    r = nf.shape[0]
+    h = asc = None
+    if passes & 2 or not pb["dynamic"]:
+        h = torch.empty(*nq.shape[:-1], 4 * c, dtype=nq.dtype,
+                        device=nq.device)
+    if pb["dynamic"]:
+        nsc = _row_vector(nsc, r, "block_up: nsc")
+        if amax is None:
+            amax = torch.zeros(*nq.shape[:-1], 1, dtype=torch.float32,
+                               device=nq.device)
+        amax = _row_vector(amax, r, "block_up: amax")
+        if passes & 2:
+            asc = torch.empty(*nq.shape[:-1], 1, dtype=torch.float32,
+                              device=nq.device)
     p = _cuda.ptr
     code = _cuda.library().cpt_block_up(
         p(nf), p(pb["w1"]), p(pb["s1"]), p(pb["b1"]), p(pb["i2"]), p(h),
-        int(pb["int8"]), nf.shape[0], c, int(tile), _cuda.stream_ptr(n.device))
+        p(nsc), p(amax), p(asc), _mode(pb), passes, r, c, int(tile),
+        _cuda.stream_ptr(nq.device))
     _cuda.check(code, "block_up")
-    return h
+    return h, asc, amax
+
+
+def block_up_scan(n, pb):
+    """The dynamic mode's GEMM 1 scan pass alone on ``n = (nq, nsc)``
+    (CUDA): each row's GELU abs-max, f32 [..., 1]; or
+    :func:`block_up_scan_plain` (CPU)."""
+    if not pb["dynamic"]:
+        raise ValueError("block_up_scan: only the dynamic int8 mode scans")
+    if n[0].device.type == "cpu":
+        return block_up_scan_plain(n, pb)
+    amax = _up_launch(n, pb, 1, 0)[2]
+    return amax.reshape(*n[0].shape[:-1], 1)
+
+
+def block_up(n, pb, tile: int = 0, amax=None):
+    """Kernel A's stage b (GEMM 1 and its epilogue) alone (CUDA), or
+    :func:`block_up_plain` (CPU). In the dynamic mode ``n = (nq, nsc)``,
+    and the result ``(aq, asc)``: the scan pass, then the quantize pass;
+    with the rows' GELU abs-max ``amax`` given, the quantize pass alone.
+    ``tile`` (int8): 0 the tile kernel A takes, 1-5 the candidates it was
+    chosen from (ops/cuda/fused_block.cu: gemm_s8)."""
+    first = n[0] if pb["dynamic"] else n
+    if first.device.type == "cpu":
+        return block_up_plain(n, pb, amax)
+    h, asc, _ = _up_launch(n, pb, 3 if amax is None else 2, tile, amax)
+    return (h, asc) if pb["dynamic"] else h
 
 
 def block_down(h, x, pb, tile: int = 0):
     """Kernel A's stage c (GEMM 2, layer scale and residual ``x``) alone
-    (CUDA), or :func:`block_down_plain` (CPU); ``tile`` as for
-    :func:`block_up`."""
-    if h.device.type == "cpu":
+    (CUDA), or :func:`block_down_plain` (CPU); in the dynamic mode ``h =
+    (aq, asc)``; ``tile`` as for :func:`block_up`."""
+    hq, asc = h if pb["dynamic"] else (h, None)
+    if hq.device.type == "cpu":
         return block_down_plain(h, x, pb)
-    _static_or_bf16(pb, "block_down")
     c = x.shape[-1]
-    hf = _rows(h, 4 * c, "block_down", (_operand_dtype(pb),), tma=True)
+    hf = _rows(hq, 4 * c, "block_down", (_operand_dtype(pb),), tma=True)
     xf = _rows(x, c, "block_down: the residual", tma=True)
     if hf.shape[0] != xf.shape[0]:
         raise ValueError(f"block_down: {hf.shape[0]} hidden rows, "
                          f"{xf.shape[0]} residual rows")
+    if pb["dynamic"]:
+        asc = _row_vector(asc, xf.shape[0], "block_down: asc")
     out = torch.empty_like(x)
     p = _cuda.ptr
     code = _cuda.library().cpt_block_down(
-        p(hf), p(pb["w2"]), p(pb["s2"]), p(pb["b2"]), p(pb["g"]), p(xf),
-        int(x.dtype == torch.bfloat16), p(out), int(pb["int8"]), xf.shape[0],
-        c, int(tile), _cuda.stream_ptr(h.device))
+        p(hf), p(pb["w2"]), p(pb["s2"]), p(pb["b2"]), p(pb["g"]), p(asc),
+        p(xf), int(x.dtype == torch.bfloat16), p(out), _mode(pb),
+        xf.shape[0], c, int(tile), _cuda.stream_ptr(x.device))
     _cuda.check(code, "block_down")
     return out
 

@@ -48,12 +48,14 @@ def prepare_gemm(w, bias=None):
             "b": b.contiguous()}
 
 
-def quant_rows(x):
+def quant_rows(x, amax=None):
     """Dynamic per-row int8 quantization over the last axis, the TPU
     kernels' rule: (integer-valued f32 ``round(x / scale)``, f32 scale
-    [..., 1]) with ``scale = max(amax, 1e-9) / 127``."""
+    [..., 1]) with ``scale = max(amax, 1e-9) / 127``; ``amax`` [..., 1]:
+    the rows' abs-max where it is already known (else taken from ``x``)."""
     x = x.to(torch.float32)
-    amax = x.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = x.abs().amax(dim=-1, keepdim=True)
     # tensor / tensor: a division by a Python scalar may run as a multiply
     # by its reciprocal (on a CUDA tensor), an ulp off the IEEE quotient
     scale = torch.clamp_min(amax, 1e-9) / torch.full_like(amax, 127.0)

@@ -47,16 +47,39 @@ def build_log(tree):
     return logs[-1].read_text() if logs else ""
 
 
+# Template arguments renamed since an entry's earlier form, so that the two
+# builds' entries match: the K-major GEMM core's operand type (bf16 unless
+# s8; a template argument since the s8 mode), kernel A's prologue mode (a
+# bool until it gained the dynamic mode) and kernel C's body (HEAD and
+# DWBF arguments until it served kernel C alone)
+RENAMES = ((re.compile(r"^(void cpt::sm90::gemm_kernel<.*), __nv_bfloat16>$"),
+            r"\1>"),
+           (re.compile(r"(block_prologue_kernel<[^,]+, )true,"), r"\g<1>1,"),
+           (re.compile(r"(block_prologue_kernel<[^,]+, )false,"), r"\g<1>0,"),
+           (re.compile(r"(fused_block_kernel<[^,]+, \d), true, false>"),
+            r"\1>"))
+
+
+def without_parameters(name):
+    """A demangled entry's name without its parameter list (which moves
+    with the kernel's arguments)."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0 and name[i] == "(":
+            return name[:i]
+    return name
+
+
 def by_name(log):
-    """ptxas_entries of a build log, the K-major GEMM core's operand type
-    (bf16 unless s8; a template argument since the s8 mode) dropped from
-    its entries' names, so that an entry matches its form from before
-    that."""
+    """ptxas_entries of a build log by name, without parameter lists and
+    with RENAMES applied, so that an entry matches its earlier form."""
     out = {}
     for name, e in ptxas_entries(log).items():
-        name = re.sub(r"^(void cpt::sm90::gemm_kernel<.*), __nv_bfloat16>\(",
-                      r"\1>(", name)
-        out[name.replace("> >", ">>")] = e
+        name = without_parameters(name).replace("> >", ">>")
+        for pattern, repl in RENAMES:
+            name = pattern.sub(repl, name)
+        out[name] = e
     return out
 
 
