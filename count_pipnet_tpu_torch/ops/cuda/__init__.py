@@ -129,8 +129,15 @@ _SIGNATURES = {
     "cpt_dwconv7_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, x_bf16, w, bias, part, counts, B, HW, C, P, stream
     "cpt_fused_count_head": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, x_bf16, wq, ws, bias, out, out_bf16, M, K, N, stream
-    "cpt_int8_quant_gemm": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_bf16, wq, ws, bias, out, out_bf16, xq, asc (scratch), M, K, N,
+    # stream
+    "cpt_int8_quant_gemm": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                            _P],
+    # K10's launches: x, x_bf16, xq, asc, M, K, stream
+    "cpt_int8_quant_rows": [_P, _I, _P, _P, _I, _I, _P],
+    # xq, asc, wq, ws, bias, out, out_bf16, M, K, N, tile, stream
+    "cpt_int8_rowscale_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P],
 }
 
 

@@ -3,8 +3,10 @@ int8 downsample of the serving backbone against the JAX package's
 int8_quant_gemm (ops/pallas/int8_gemm.py, interpret mode) and its conv, on
 the same numpy-seeded inputs.
 
-On a CUDA tensor the same wrapper launches K10; chip_smoke.py holds it
-against this plain version on the card."""
+On a CUDA tensor the same wrapper launches K10 (its row quantize pass,
+then the s8 GEMM with the row-scale epilogue, each with a plain version of
+its own); chip_smoke.py holds it and each launch against these plain
+versions on the card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,14 +14,20 @@ import pytest
 import torch
 
 from count_pipnet_tpu.models.quantized import _conv as jax_conv
+from count_pipnet_tpu.ops.pallas.fused_block import (
+    _quant_rows as jax_quant_rows)
 from count_pipnet_tpu.ops.pallas.int8_gemm import (
     int8_quant_gemm as jax_int8_quant_gemm,
     quantize_gemm_weights as jax_quantize_gemm_weights)
 from count_pipnet_tpu_torch.models.quantized import im2col_2x2
 from count_pipnet_tpu_torch.ops.int8_gemm import (int8_quant_gemm,
                                                   int8_quant_gemm_plain,
+                                                  int8_rowscale_gemm,
+                                                  int8_rowscale_gemm_plain,
                                                   prepare_gemm,
                                                   quant_rows,
+                                                  quant_rows_int8,
+                                                  quant_rows_int8_plain,
                                                   quantize_gemm_weights)
 
 
@@ -110,3 +118,74 @@ def test_dispatch_and_validation():
                        int8_quant_gemm_plain(x, prep))
     with pytest.raises(ValueError):
         int8_quant_gemm(x.to("meta"), prep)
+
+
+def _rows_with_ties(m, k, seed, bf16_valued=False):
+    """[m, k] f32 rows, seeded: row 1 has abs-max 127 (scale 1) and values
+    halfway between integers (round half to even), row 3 is all zero;
+    ``bf16_valued``: every value representable in bf16 (the route's
+    columns)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    x[1] = (rng.integers(-126, 126, size=k) + 0.5).astype(np.float32)
+    x[1, 0] = 127.0
+    x[3] = 0.0
+    if bf16_valued:
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return x
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [768, 1536])
+def test_plain_matches_pallas_at_downsample_k(k, out_dtype):
+    """The downsample GEMMs' depths K = 768 and 1536 at N = 32 and a ragged
+    M = 100 (against the JAX row tile of 16), with halfway values and a zero
+    row: the plain version against the Pallas kernel (interpret mode),
+    f32 out within 1e-6 of the largest value, bf16 out within one bf16 ulp
+    of it (4e-3)."""
+    x = _rows_with_ties(100, k, seed=k)
+    rng = np.random.default_rng(k + 1)
+    w = (rng.normal(size=(k, 32)) * 0.05).astype(np.float32)
+    b = (rng.normal(size=(32,)) * 0.1).astype(np.float32)
+    got = int8_quant_gemm(torch.from_numpy(x),
+                          prepare_gemm(torch.from_numpy(w),
+                                       torch.from_numpy(b)),
+                          getattr(torch, out_dtype))
+    want = np.asarray(jax_int8_quant_gemm(
+        jnp.asarray(x), jnp.asarray(w), bias=jnp.asarray(b),
+        out_dtype=getattr(jnp, out_dtype), row_tile=16, interpret=True),
+        np.float32)
+    tol = 1e-6 if out_dtype == "float32" else 4e-3
+    assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("bf16_valued", [False, True])
+@pytest.mark.parametrize("k", [128, 768, 1536])
+def test_quant_rows_equal_jax(k, bf16_valued):
+    """K10's row quantization (the plain version of its first launch) is
+    the JAX package's _quant_rows bit for bit: the same int8 rows (halfway
+    values to even, a zero row to zeros) and the same f32 scales."""
+    x = _rows_with_ties(37, k, seed=2 * k + bf16_valued,
+                        bf16_valued=bf16_valued)
+    q, scale = quant_rows_int8_plain(torch.from_numpy(x))
+    jq, jscale = jax_quant_rows(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale)[:, 0])
+    assert q.dtype == torch.int8 and not q[3].any()
+    assert torch.equal(q, quant_rows(torch.from_numpy(x))[0].to(torch.int8))
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [768, 1536])
+def test_launch_plain_versions_compose(k, out_dtype):
+    """K10's two launches, through their wrappers on CPU tensors (their
+    plain versions), compose to the whole function's plain version exactly;
+    the wrappers dispatch a CPU tensor to the plain versions."""
+    dt = getattr(torch, out_dtype)
+    x = torch.from_numpy(_rows_with_ties(50, k, seed=k + 7))
+    prep = prepare_gemm(0.05 * torch.randn(k, 48), 0.1 * torch.randn(48))
+    xq, asc = quant_rows_int8(x)
+    assert torch.equal(xq, quant_rows_int8_plain(x)[0])
+    got = int8_rowscale_gemm(xq, asc, prep, dt)
+    assert torch.equal(got, int8_rowscale_gemm_plain(xq, asc, prep, dt))
+    assert torch.equal(got, int8_quant_gemm_plain(x, prep, dt))
