@@ -25,7 +25,7 @@ import itertools
 
 import torch
 
-from ..ops.fused_head import fused_count_head
+from ..ops.fused_head import fused_count_head, prepare_count_head
 from ..ops.gumbel_head import gumbel_hard_counts
 from ..ops.ste import create_modified_encoding
 from .quantized import (fused_block_convnext_apply, fused_convnext_apply,
@@ -53,7 +53,8 @@ def make_serving_fn(model, state_dict=None, device="cuda", *,
     int8 pointwise GEMMs (``quant_convnext_apply``), or with ``fused_mlp``
     its block bodies through K5 (``fused_convnext_apply``); the last two
     keep their planes in ``dtype``. The counts are K9 with the add-on's 1x1
-    conv, or with the identity and a zero bias at ``num_features=0``.
+    conv, or with the identity and a zero bias at ``num_features=0`` (its
+    split bf16 operands made here).
     ``state_dict`` (optional) is loaded into ``model`` first; all weights
     are prepared once, here. ``x`` is [B, H, W, 3] (numpy or tensor); the
     outputs are tensors on ``device``.
@@ -88,6 +89,7 @@ def make_serving_fn(model, state_dict=None, device="cuda", *,
         w = torch.eye(p, device=device)
         b = torch.zeros(p, device=device)
     w, b = w.contiguous(), b.contiguous()
+    head = prepare_count_head(w, b)
     clf = model.classification
     w_t = torch.relu(clf.weight.detach()).t().contiguous()   # [D, K]
     bias = None if clf.bias is None else clf.bias.detach()
@@ -96,7 +98,7 @@ def make_serving_fn(model, state_dict=None, device="cuda", *,
     @torch.inference_mode()
     def infer(x):
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
-        counts = fused_count_head(features(x), w, b)
+        counts = fused_count_head(features(x), w, b, prepared=head)
         clamped = torch.clamp(torch.round(counts), 0.0, max_count)
         out = model.intermediate(clamped) @ w_t
         if bias is not None:

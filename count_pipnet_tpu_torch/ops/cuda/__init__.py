@@ -127,8 +127,16 @@ _SIGNATURES = {
     "cpt_dwconv7": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, g, bf16, B, H, W, C, seg, chunks, part, out, stream
     "cpt_dwconv7_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # x, x_bf16, w, bias, part, counts, B, HW, C, P, stream
-    "cpt_fused_count_head": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_bf16, w, bias, xhi, xlo, stats, logits, part (scratch), counts,
+    # B, HW, C, Pp, stream
+    "cpt_fused_count_head": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _P],
+    # K9's launches: x, hi, lo, n, stream
+    "cpt_head_split": [_P, _P, _P, ctypes.c_longlong, _P],
+    # xhi, xlo, w, bias, stats, logits, M, C, Pp, tile, stream
+    "cpt_head_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # logits, stats, part, B, HW, Pp, nt, stream
+    "cpt_head_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, x_bf16, wq, ws, bias, out, out_bf16, xq, asc (scratch), M, K, N,
     # stream
     "cpt_int8_quant_gemm": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,

@@ -607,21 +607,19 @@ __host__ __device__ constexpr int smem_bytes() {
   return (ring > tile ? ring : tile) + 16 * STAGES + 1024;
 }
 
-// The consumer warpgroups of gemm_kernel (MN: of gemm_mn_kernel, whose
-// stages hold MN-major tiles; In: the K-major operand type): warpgroup wg
-// owns rows [64 wg, 64 wg + 64) of the tile.
-template <int BN, int STAGES, typename Epi, bool MN = false,
-          typename In = __nv_bfloat16>
-__device__ __forceinline__ void consume(unsigned char* sa, unsigned char* sb,
-                                        uint64_t* full, uint64_t* empty,
-                                        int m0, int n0, int M, int N,
-                                        int steps, const Epi& epi) {
-  using Acc = typename KMajor<In>::Acc;
+// The K loop of a consumer warpgroup of gemm_kernel (MN: of gemm_mn_kernel,
+// whose stages hold MN-major tiles; In: the K-major operand type): warpgroup
+// wg = threadIdx.x / 128 adds rows [64 wg, 64 wg + 64) of the tile's
+// product over ``steps`` stages of the ring into ``d`` (the layout of
+// wgmma_bf16), releasing each stage once its wgmma are done. Kernels with
+// producers and epilogues of their own run it too (ops/cuda/fused_head.cu).
+template <int BN, int STAGES, bool MN = false, typename In = __nv_bfloat16,
+          typename Acc = typename KMajor<In>::Acc>
+__device__ __forceinline__ void mma_loop(unsigned char* sa, unsigned char* sb,
+                                         uint64_t* full, uint64_t* empty,
+                                         int steps, Acc (&d)[BN / 2]) {
   constexpr int kA = kBM * kBK * 2, kB = BN * kBK * 2;  // stage bytes
-  const int warp = threadIdx.x / 32, wg = warp / 4;
-  Acc d[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) d[i] = Acc(0);
+  const int wg = threadIdx.x / 128;
   for (int k = 0; k < steps; ++k) {
     const int s = k % STAGES;
     mbar_wait(full + s, (k / STAGES) & 1);
@@ -652,6 +650,22 @@ __device__ __forceinline__ void consume(unsigned char* sa, unsigned char* sb,
   }
   wgmma_wait<0>();
   fence_regs(d);
+}
+
+// The consumer warpgroups of gemm_kernel and gemm_mn_kernel: the K loop,
+// then the tile through ``epi``.
+template <int BN, int STAGES, typename Epi, bool MN = false,
+          typename In = __nv_bfloat16>
+__device__ __forceinline__ void consume(unsigned char* sa, unsigned char* sb,
+                                        uint64_t* full, uint64_t* empty,
+                                        int m0, int n0, int M, int N,
+                                        int steps, const Epi& epi) {
+  using Acc = typename KMajor<In>::Acc;
+  const int wg = threadIdx.x / 128;
+  Acc d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = Acc(0);
+  mma_loop<BN, STAGES, MN, In>(sa, sb, full, empty, steps, d);
 
   // epilogue: both warpgroups are done with the ring (every stage was
   // consumed, so the producer is done too); stage the tile there
