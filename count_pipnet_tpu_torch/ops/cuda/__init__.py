@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # Kernel A in its dynamic int8 mode counts as "fused_block_int8_dyn", and
 # with bf16 depthwise taps as "fused_block_dwbf16" (bf16 and int8-static
 # GEMMs) or "fused_block_int8_dyn_dwbf16"; a call of kernel A (three
-# launches, four in the dynamic mode) counts once.
+# launches, four in the dynamic mode) counts once, and so does a call of
+# kernel C (four launches).
 launch_counts = {"fused_block": 0, "gumbel_hard_counts": 0,
                  "fused_block_gumbel_counts": 0, "fused_ln_mlp_residual": 0,
                  "fused_mlp_bwd": 0, "dwconv7": 0, "dwconv7_wgrad": 0,
@@ -71,10 +72,10 @@ _SIGNATURES = {
     # x, out, dw_bf16, x_bf16, mode, B, H, W, C, ..., n (scratch),
     # h (scratch), rs (row-scale scratch, dynamic mode), stream
     "cpt_fused_block": [_P, _P, _I] + _BLOCK_ARGS + [_P, _P, _P, _P],
-    # kernel A's launches: x, n, nsc, amax, dw_bf16, x_bf16, mode, B, H, W,
-    # C, dwk, dwb, lns, lnb, i1, eps, stream
-    "cpt_block_prologue": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                           _P, _P, _P, _P, _F, _P],
+    # kernel A's launches: x, n, nsc, amax, keys, dw_bf16, x_bf16, mode, B,
+    # H, W, C, dwk, dwb, lns, lnb, i1, eps, stream
+    "cpt_block_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _F, _P],
     # n, w1, s1, b1, i2, h, nsc, amax, asc, mode, passes, R, C, tile, stream
     "cpt_block_up": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
@@ -85,9 +86,18 @@ _SIGNATURES = {
     "cpt_sm90_gemm_s8": [_P, _P, _P, _I, _I, _I, _P],
     # logits, x_bf16, noise, counts, B, HW, C, seed, stream
     "cpt_gumbel_hard_counts": [_P, _I, _P, _P, _I, _I, _I, _U64, _P],
-    # x, x_bf16, int8, B, H, W, C, ..., noise, counts, seed, stream
-    "cpt_fused_block_gumbel_counts": [_P] + _BLOCK_ARGS + [_P, _P, _U64,
-                                                           _P],
+    # x, x_bf16, mode, B, H, W, C, ..., noise, counts, seed, n (scratch),
+    # h (scratch), keys (scratch), stream
+    "cpt_fused_block_gumbel_counts": [_P] + _BLOCK_ARGS + [_P, _P, _U64, _P,
+                                                           _P, _P, _P],
+    # kernel C's launches: h, w2, s2, b2, g, x, x_bf16, noise, keys, mode,
+    # R, HW, C, seed, tile, stream
+    "cpt_block_head_keys": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                            _I, _U64, _I, _P],
+    # keys, counts, B, HW, C, stream
+    "cpt_count_keys": [_P, _P, _I, _I, _I, _P],
+    # h, w2, s2, b2, g, x, x_bf16, out (f32), mode, R, C, stream
+    "cpt_block_down_f32": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     # x, res, out, x_bf16, res_bf16, R, C, lns, lnb, w1, b1, w2, b2, g,
     # eps, n (scratch), h (scratch), stream
     "cpt_fused_mlp": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,

@@ -3,48 +3,27 @@
 //   dwconv7x7 + bias -> LayerNorm -> pw1 (C -> 4C) -> tanh-GELU
 //     -> pw2 (4C -> C) -> * layer_scale -> + residual
 //
-// - the depthwise window walk (dw7_walk, dw7_dot), which kernel A's
-//   prologue (fused_block.cu), K7 (dwconv.cu) and K8 (dwconv_wgrad.cu) use;
+// - the depthwise window walk (dw7_walk, dw7_dot, block_dw_rows), which
+//   kernel A's prologue (fused_block.cu), K7 (dwconv.cu) and K8
+//   (dwconv_wgrad.cu) use;
 // - the arithmetic of each step as __device__ functions with their
 //   floating-point contraction pinned (ln_stats, ln_value, quant_scaled,
-//   up_static, up_dyn, block_out), so that every kernel that computes a
-//   step computes the same bits: kernel A's launches (fused_block.cu) and
-//   the one-kernel body below;
-// - that one-kernel body, fused_block_kernel, for kernel C alone (the
-//   block of count_pipnet_tpu/ops/pallas/gumbel_head.py:
-//   fused_block_gumbel_counts, :268, in its bf16 and int8-static modes,
-//   with the noisy-argmax histogram as its epilogue, so the last plane is
-//   never written). It keeps one kernel because the argmax needs a whole
-//   row of the block output at once, more than one GEMM tile of kernel A's
-//   launches holds. Kernel A runs every mode, the dynamic int8 one
-//   included, as launches on the TMA-fed wgmma core (fused_block.cu).
-//
-// The body keeps the depthwise output and the 4C-wide hidden activation on
-// the SM:
-//
-//   1. A CTA owns TM patch rows. It computes dw7x7 for them (halo by bounds
-//      checks, f32 taps), then LayerNorm, and keeps the LN output in shared
-//      memory as the GEMM operand (bf16, or int8 with the static scale).
-//   2. It walks the hidden dimension in chunks of HC: pw1 chunk -> bias ->
-//      GELU -> cast / quantize -> accumulate pw2 into a [TM, C] shared
-//      accumulator (int32 in the int8 mode: the static scales are per
-//      hidden channel, so chunking is exact).
-//   3. Epilogue: dequantize, * gamma, + residual (block_out, as kernel A's
-//      GEMM 2 epilogue computes it), and the noisy argmax histogram of each
-//      row.
-//
-// The body's GEMMs run on the tensor cores through mma.sync (m16n8k16
-// bf16, m16n8k32 s8) with the weights read from L2 as [out, in] rows.
+//   up_static, up_dyn, block_out), so that every launch that computes a
+//   step computes the same bits: kernel A's (fused_block.cu) and kernel
+//   C's, which runs kernel A's prologue and GEMM 1 and its own GEMM 2 with
+//   the noisy argmax in the epilogue (gumbel_head.cu);
+// - the tiles of the two kernels' GEMMs on sm90.cuh's TMA-fed wgmma core
+//   (gemm_tiled).
 #pragma once
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace cpt {
 
-constexpr int kTM = 32;        // patch rows per CTA
-constexpr int kHC = 128;       // hidden chunk
+constexpr int kTM = 32;        // patch rows per CTA of the prologue
 constexpr int kThreads = 256;  // 8 warps
 
 // GEMM operand modes: bf16, int8 with calibrated static scales, int8 with
@@ -68,9 +47,6 @@ struct BlockParams {
   const float* i2;   // [4C] 127 / amax of the GELU output (int8)
   const float* g;    // [C] layer scale
   float eps;
-  float* counts;       // [B, C] f32, zeroed (HEAD)
-  const float* noise;  // [B*H*W, C] f32 or null (HEAD)
-  uint2 key;           // Philox key (HEAD, no noise)
 };
 
 __device__ __forceinline__ int8_t quant_static(float v) {
@@ -132,57 +108,6 @@ __device__ __forceinline__ float block_out(float x, float v, float s,
                                            float b, float g) {
   return __fadd_rn(x, __fmul_rn(__fadd_rn(__fmul_rn(v, s), b), g));
 }
-
-// Fragment loads shared by both mma shapes: in bytes, the A registers of
-// m16n8k16 bf16 and m16n8k32 s8 sit at the same offsets (row g / g + 8,
-// byte 4 * tq / 4 * tq + 16 of the 32-byte K slice), and so do B's.
-__device__ __forceinline__ void load_frag_a(uint32_t a[4],
-                                            const unsigned char* base,
-                                            int row_bytes, int lane) {
-  const int g = lane >> 2, tq = lane & 3;
-  const unsigned char* p0 = base + g * row_bytes + 4 * tq;
-  const unsigned char* p1 = p0 + 8 * row_bytes;
-  a[0] = *reinterpret_cast<const uint32_t*>(p0);
-  a[1] = *reinterpret_cast<const uint32_t*>(p1);
-  a[2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p1 + 16);
-}
-
-__device__ __forceinline__ void load_frag_b(uint32_t b[2],
-                                            const unsigned char* base,
-                                            int row_bytes, int lane) {
-  const int g = lane >> 2, tq = lane & 3;
-  const uint32_t* p =
-      reinterpret_cast<const uint32_t*>(base + g * row_bytes + 4 * tq);
-  b[0] = __ldg(p);
-  b[1] = __ldg(p + 4);
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2], __nv_bfloat16) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma(int c[4], const uint32_t a[4],
-                                    const uint32_t b[2], int8_t) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <bool INT8>
-struct Mode {
-  using E = std::conditional_t<INT8, int8_t, __nv_bfloat16>;  // operand
-  using Acc = std::conditional_t<INT8, int, float>;
-  static constexpr int kK = 32 / (int)sizeof(E);  // mma depth
-  static constexpr int kPad = 16 / (int)sizeof(E);  // 16-byte row pad
-};
 
 // The depthwise 7x7 (stride 1, pad 3) of one channel ``c`` over a run of
 // ``n`` consecutive pixels of the flattened [B*H*W, C] plane, from pixel
@@ -303,14 +228,6 @@ __device__ __forceinline__ float2 dw7_dot(const __nv_bfloat162 (&win)[7][7],
   return d;
 }
 
-template <int Q>
-__host__ __device__ inline size_t block_smem_bytes(int C) {
-  using M = Mode<Q != kQBf16>;
-  return (size_t)kTM * (C + 8) * 4                       // accumulator
-         + (size_t)kTM * (C + M::kPad) * sizeof(typename M::E)    // LN out
-         + (size_t)kTM * (kHC + M::kPad) * sizeof(typename M::E);  // hidden
-}
-
 // Step 1a of a CTA that owns the kTM rows from ``row0``: depthwise 7x7 +
 // bias into ``accf`` ([kTM, C] f32, row stride ``as``), zeros past the
 // plane's end. A thread owns one channel (DWBF: a channel pair, in bf16x2)
@@ -320,7 +237,7 @@ __host__ __device__ inline size_t block_smem_bytes(int C) {
 // threads work. The f32 and bf16 tap branches stay apart: written as one
 // loop over 1 or 2 channels a thread, the f32-tap instantiations rose from
 // 127-128 to 130-162 registers and ran up to 1.4 times slower (H100).
-// Kernel A's prologue (fused_block.cu) and the body below both run it.
+// Kernel A's prologue (fused_block.cu) runs it.
 template <typename T, bool DWBF>
 __device__ __forceinline__ void block_dw_rows(const BlockParams& p,
                                               float* accf, int as,
@@ -369,165 +286,6 @@ __device__ __forceinline__ void block_dw_rows(const BlockParams& p,
   }
 }
 
-template <typename T, int Q>
-__global__ void __launch_bounds__(kThreads)
-    fused_block_kernel(const BlockParams p) {
-  constexpr bool INT8 = Q != kQBf16;
-  using M = Mode<INT8>;
-  using E = typename M::E;
-  using Acc = typename M::Acc;
-  const int C = p.C, HD = 4 * C, HW = p.H * p.W, total = p.B * HW;
-  const int row0 = blockIdx.x * kTM;
-  const int as = C + 8;          // accumulator row stride (4-byte words)
-  const int xs = C + M::kPad;    // LN-output row stride (elements)
-  const int hs = kHC + M::kPad;  // hidden row stride (elements)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g8 = lane >> 2, tq = lane & 3;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* accf = reinterpret_cast<float*>(smem);
-  Acc* acc = reinterpret_cast<Acc*>(smem);
-  E* xn = reinterpret_cast<E*>(smem + (size_t)kTM * as * 4);
-  E* hb = xn + kTM * xs;
-  const T* x = static_cast<const T*>(p.x);
-  const unsigned char* w1 = static_cast<const unsigned char*>(p.w1);
-  const unsigned char* w2 = static_cast<const unsigned char*>(p.w2);
-
-  block_dw_rows<T, false>(p, accf, as, row0);
-  __syncthreads();
-
-  // 1b. LayerNorm per row (one warp a row), cast / quantize into xn
-  for (int r = warp; r < kTM; r += kThreads / 32) {
-    const float* d = accf + r * as;
-    const float2 st = ln_stats(d, C, p.eps, lane);
-    for (int c = lane; c < C; c += 32) {
-      const float n = ln_value(d[c], st, p.lns[c], p.lnb[c]);
-      if constexpr (INT8) {
-        xn[r * xs + c] = quant_scaled(n, p.i1[c]);
-      } else {
-        xn[r * xs + c] = __float2bfloat16_rn(n);
-      }
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < kTM * as; idx += kThreads) acc[idx] = Acc(0);
-  __syncthreads();
-
-  // 2. hidden chunks: pw1 -> GELU -> pw2 accumulate
-  for (int j0 = 0; j0 < HD; j0 += kHC) {
-    {  // pw1 chunk [kTM, kHC]: warp -> m-tile (warp & 1), 4 n-tiles
-      const int mt = warp & 1, nb = (warp >> 1) * 4;
-      Acc c4[4][4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c4[t][e] = Acc(0);
-#pragma unroll 4
-      for (int k0 = 0; k0 < C; k0 += M::kK) {
-        uint32_t a[4];
-        load_frag_a(a,
-                    reinterpret_cast<const unsigned char*>(
-                        xn + (mt * 16) * xs + k0),
-                    xs * (int)sizeof(E), lane);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          uint32_t bf[2];
-          const int n0 = j0 + (nb + t) * 8;
-          load_frag_b(bf, w1 + ((size_t)n0 * C + k0) * sizeof(E),
-                      C * (int)sizeof(E), lane);
-          mma(c4[t], a, bf, E());
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = mt * 16 + g8 + (e >> 1) * 8;
-          const int jl = (nb + t) * 8 + tq * 2 + (e & 1);
-          const int j = j0 + jl;
-          if constexpr (INT8) {
-            hb[r * hs + jl] = up_static(c4[t][e], p.s1[j], p.b1[j], p.i2[j]);
-          } else {
-            hb[r * hs + jl] =
-                __float2bfloat16_rn(gelu_tanh(c4[t][e] + p.b1[j]));
-          }
-        }
-    }
-    __syncthreads();
-    // pw2 partial [kTM, C] += hidden chunk @ w2[:, j0:j0+kHC]
-    const int ntn = C / 8;
-#pragma unroll 2
-    for (int t = warp; t < 2 * ntn; t += kThreads / 32) {
-      const int mt = t & 1, n0 = (t >> 1) * 8;
-      Acc c4[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
-#pragma unroll
-      for (int k0 = 0; k0 < kHC; k0 += M::kK) {
-        uint32_t a[4], bf[2];
-        load_frag_a(a,
-                    reinterpret_cast<const unsigned char*>(
-                        hb + (mt * 16) * hs + k0),
-                    hs * (int)sizeof(E), lane);
-        load_frag_b(bf, w2 + ((size_t)n0 * HD + j0 + k0) * sizeof(E),
-                    HD * (int)sizeof(E), lane);
-        mma(c4, a, bf, E());
-      }
-      Acc* dst = acc + (mt * 16 + g8) * as + n0 + tq * 2;
-      dst[0] += c4[0];
-      dst[1] += c4[1];
-      dst[8 * as] += c4[2];
-      dst[8 * as + 1] += c4[3];
-    }
-    __syncthreads();
-  }
-
-  // 3. epilogue: the block output of row r, channel c, from x's value xv
-  // (as kernel A's GEMM 2 epilogue computes it: block_out), then each
-  // row's noisy argmax into the histogram
-  auto out_val = [&](float xv, int r, int c) -> float {
-    if constexpr (INT8) {
-      return block_out(xv, (float)acc[r * as + c], p.s2[c], p.b2[c], p.g[c]);
-    } else {
-      return block_out(xv, acc[r * as + c], 1.0f, p.b2[c], p.g[c]);
-    }
-  };
-  for (int r = warp; r < kTM; r += kThreads / 32) {
-    const int row = row0 + r;
-    if (row >= total) break;
-    const int b = row / HW, patch = row - b * HW;
-    const T* xr = x + (size_t)row * C;
-    const int win = noisy_argmax_row(
-        [&](int c) { return out_val(to_f32(xr[c]), r, c); }, C,
-        p.noise ? p.noise + (size_t)row * C : nullptr, p.key,
-        (uint32_t)patch, (uint32_t)b, lane);
-    if (lane == 0) atomicAdd(p.counts + (size_t)b * C + win, 1.0f);
-  }
-}
-
-// Host side: pick the instantiation (``mode`` kQBf16 or kQStatic, as the
-// TPU's fused head takes) and launch on ``stream``.
-inline cudaError_t launch_fused_block(const BlockParams& p, int x_bf16,
-                                      int mode, cudaStream_t stream) {
-  if (p.C % 32 != 0 || (mode != kQBf16 && mode != kQStatic))
-    return cudaErrorInvalidValue;
-  const int total = p.B * p.H * p.W;
-  const dim3 grid((total + kTM - 1) / kTM);
-  const size_t smem = mode == kQStatic ? block_smem_bytes<kQStatic>(p.C)
-                                       : block_smem_bytes<kQBf16>(p.C);
-  auto go = [&](auto kernel) -> cudaError_t {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(p);
-    return cudaGetLastError();
-  };
-  using BF = __nv_bfloat16;
-  if (x_bf16)
-    return mode == kQStatic ? go(fused_block_kernel<BF, kQStatic>)
-                            : go(fused_block_kernel<BF, kQBf16>);
-  return mode == kQStatic ? go(fused_block_kernel<float, kQStatic>)
-                          : go(fused_block_kernel<float, kQBf16>);
-}
-
 inline BlockParams make_block_params(
     const void* x, int B, int H, int W, int C, const float* dwk,
     const float* dwb, const float* lns, const float* lnb, const void* w1,
@@ -540,8 +298,38 @@ inline BlockParams make_block_params(
   p.w1 = w1; p.s1 = s1; p.b1 = b1; p.i1 = i1;
   p.w2 = w2; p.s2 = s2; p.b2 = b2; p.i2 = i2;
   p.g = g; p.eps = eps;
-  p.counts = nullptr; p.noise = nullptr; p.key = make_uint2(0u, 0u);
   return p;
+}
+
+// The GEMMs' tiles <BN, STAGES, CTAs an SM> by ``tile``: 1-5 the
+// candidates (scripts/block_tiles.py times kernel A's int8 GEMMs with each),
+// 0 the choice for the GEMM and width (default_tile, from those times and
+// K5's: GEMM 1, N = 4C, two 128-wide CTAs an SM; GEMM 2, K = 4C, a
+// 256-wide tile where 256 divides C). ``In``: the operand type, int8 (the
+// s8 mode) or bf16 (tiles 1-4: the core has no 192-wide bf16 wgmma).
+constexpr int kTiles = 5;
+
+inline int default_tile(bool up, int N) {
+  if (!up && N % 256 == 0) return 2;
+  if (N % 128 == 0) return 1;
+  return 3;
+}
+
+template <typename In, typename Epi>
+cudaError_t gemm_tiled(bool up, int tile, const void* a, const void* b,
+                       int M, int N, int K, const Epi& epi,
+                       cudaStream_t st) {
+  switch (tile == 0 ? default_tile(up, N) : tile) {
+    case 1: return sm90::gemm<128, 3, 2, Epi, In>(a, b, M, N, K, epi, st);
+    case 2: return sm90::gemm<256, 4, 1, Epi, In>(a, b, M, N, K, epi, st);
+    case 3: return sm90::gemm<96, 3, 2, Epi, In>(a, b, M, N, K, epi, st);
+    case 4: return sm90::gemm<64, 4, 2, Epi, In>(a, b, M, N, K, epi, st);
+    case 5:
+      if constexpr (std::is_same_v<In, int8_t>)
+        return sm90::gemm<192, 3, 1, Epi, In>(a, b, M, N, K, epi, st);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace cpt

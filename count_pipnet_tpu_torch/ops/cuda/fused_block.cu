@@ -17,11 +17,9 @@
 // accumulator, 384 KB, which no SM holds (K5's reasoning, fused_mlp.cu). So
 // kernel A is launches on the stream, three in the bf16 and int8-static
 // modes:
-//   a. block_prologue_kernel: depthwise 7x7 + bias, LayerNorm, then the cast
-//      (bf16) or the static quantization (int8: quant_scaled(n, i1)) into
-//      n [R, C]. Steps 1a and 1b of block.cuh's body through the same
-//      functions (block_dw_rows, ln_stats, ln_value), so n is the bits that
-//      kernel C computes for its GEMM operand.
+//   a. block_prologue_kernel: depthwise 7x7 + bias (block.cuh:
+//      block_dw_rows), LayerNorm (ln_stats, ln_value), then the cast (bf16)
+//      or the static quantization (int8: quant_scaled(n, i1)) into n [R, C].
 //   b. GEMM 1, n . W1^T, on sm90.cuh's TMA-fed wgmma core: bf16, K5's
 //      up_gelu (fused_mlp.cu) -> bf16 hidden; int8-static, the core's s8
 //      mode with the epilogue up_static -> int8 hidden [R, 4C].
@@ -30,8 +28,10 @@
 //      block_out -> out in x's type.
 // n and the hidden activation go to device memory and back: 10 R C bytes
 // each way in bf16, 5 R C in int8. The int8 sums are exact, and every step
-// of the static mode's arithmetic is block.cuh's pinned function, which
-// kernel C calls too: its output is the bits kernel C takes its argmax of.
+// of the static mode's arithmetic is block.cuh's pinned function. Kernel C
+// (gumbel_head.cu) runs launches a and b through this file's entries and
+// its own GEMM 2, whose epilogue computes block_out as c does: its argmax
+// sees the bits kernel A writes.
 //
 // The dynamic int8 mode quantizes each row with its own scale: the LN
 // output over its C values, the GELU output over its 4C. A GEMM 1 tile
@@ -64,16 +64,17 @@ extern "C" int cpt_mlp_down_residual(const void* h, const void* w2,
 namespace cpt {
 namespace {
 
-// a. the prologue: a CTA owns kTM rows, as block.cuh's body does, and two
-// CTAs share an SM (at most 128 registers a thread). Unbounded, the
-// bf16-tap instantiations took 161-163 registers and one CTA an SM; kernel
-// A ran 5-17 % slower so (H100). ``Q``: the operand mode (block.cuh: kQ*);
-// ``nsc`` and ``amax`` (kQDyn): each row's scale, and its GELU abs-max
-// slot, zeroed here for GEMM 1's scan pass (null: left alone).
+// a. the prologue: a CTA owns kTM rows, and two CTAs share an SM (at most
+// 128 registers a thread). Unbounded, the bf16-tap instantiations took
+// 161-163 registers and one CTA an SM; kernel A ran 5-17 % slower so
+// (H100). ``Q``: the operand mode (block.cuh: kQ*); ``nsc`` and ``amax``
+// (kQDyn): each row's scale, and its GELU abs-max slot, zeroed here for
+// GEMM 1's scan pass (null: left alone); ``keys``: each row's argmax key
+// slot, zeroed here for kernel C's GEMM 2 (null: left alone).
 template <typename T, int Q, bool DWBF>
 __global__ void __launch_bounds__(kThreads, 2)
     block_prologue_kernel(const BlockParams p, void* n, float* nsc,
-                          int* amax) {
+                          int* amax, unsigned long long* keys) {
   extern __shared__ __align__(16) unsigned char pro_smem[];
   float* accf = reinterpret_cast<float*>(pro_smem);  // [kTM, C + 8]
   const int C = p.C, total = p.B * p.H * p.W, as = C + 8;
@@ -111,6 +112,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int c = lane; c < C; c += 32)
         o[c] = __float2bfloat16_rn(ln_value(d[c], st, p.lns[c], p.lnb[c]));
     }
+    if (keys != nullptr && lane == 0) keys[row] = 0ull;
   }
 }
 
@@ -240,34 +242,10 @@ struct DownDyn {
   }
 };
 
-// The s8 GEMMs' tiles <BN, STAGES, CTAs an SM> by ``tile``: 1-5 the
-// candidates (scripts/block_tiles.py times each on the card), 0 the choice
-// for the GEMM and width (default_tile, from those times).
-constexpr int kTiles = 5;
-
-int default_tile(bool up, int N) {
-  if (!up && N % 256 == 0) return 2;
-  if (N % 128 == 0) return 1;
-  return 3;
-}
-
-template <typename Epi>
-cudaError_t gemm_s8(bool up, int tile, const void* a, const void* b, int M,
-                    int N, int K, const Epi& epi, cudaStream_t st) {
-  using I8 = int8_t;
-  switch (tile == 0 ? default_tile(up, N) : tile) {
-    case 1: return sm90::gemm<128, 3, 2, Epi, I8>(a, b, M, N, K, epi, st);
-    case 2: return sm90::gemm<256, 4, 1, Epi, I8>(a, b, M, N, K, epi, st);
-    case 3: return sm90::gemm<96, 3, 2, Epi, I8>(a, b, M, N, K, epi, st);
-    case 4: return sm90::gemm<64, 4, 2, Epi, I8>(a, b, M, N, K, epi, st);
-    case 5: return sm90::gemm<192, 3, 1, Epi, I8>(a, b, M, N, K, epi, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 template <typename T, bool DWBF>
 cudaError_t prologue_as(const BlockParams& p, void* n, float* nsc,
-                        int* amax, int mode, cudaStream_t st) {
+                        int* amax, unsigned long long* keys, int mode,
+                        cudaStream_t st) {
   const int total = p.B * p.H * p.W;
   const dim3 grid((total + kTM - 1) / kTM);
   const int smem = kTM * (p.C + 8) * 4;
@@ -275,7 +253,7 @@ cudaError_t prologue_as(const BlockParams& p, void* n, float* nsc,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, st>>>(p, n, nsc, amax);
+    kernel<<<grid, kThreads, smem, st>>>(p, n, nsc, amax, keys);
     return cudaGetLastError();
   };
   switch (mode) {
@@ -287,13 +265,14 @@ cudaError_t prologue_as(const BlockParams& p, void* n, float* nsc,
 }
 
 cudaError_t prologue(const BlockParams& p, void* n, float* nsc, int* amax,
-                     int dw_bf16, int x_bf16, int mode, cudaStream_t st) {
+                     unsigned long long* keys, int dw_bf16, int x_bf16,
+                     int mode, cudaStream_t st) {
   using BF = __nv_bfloat16;
   if (dw_bf16)
-    return x_bf16 ? prologue_as<BF, true>(p, n, nsc, amax, mode, st)
-                  : prologue_as<float, true>(p, n, nsc, amax, mode, st);
-  return x_bf16 ? prologue_as<BF, false>(p, n, nsc, amax, mode, st)
-                : prologue_as<float, false>(p, n, nsc, amax, mode, st);
+    return x_bf16 ? prologue_as<BF, true>(p, n, nsc, amax, keys, mode, st)
+                  : prologue_as<float, true>(p, n, nsc, amax, keys, mode, st);
+  return x_bf16 ? prologue_as<BF, false>(p, n, nsc, amax, keys, mode, st)
+                : prologue_as<float, false>(p, n, nsc, amax, keys, mode, st);
 }
 
 // The dynamic mode's GEMM 1 passes (``passes``): bit 0 the scan, bit 1 the
@@ -309,17 +288,18 @@ cudaError_t up(const void* n, const void* w1, const float* s1,
                 : (cudaError_t)cpt_mlp_up_gelu(n, w1, b1, h, R, C, st);
   int8_t* hq = static_cast<int8_t*>(h);
   if (mode == kQStatic)
-    return gemm_s8(true, tile, n, w1, R, 4 * C, C,
-                   UpStatic{s1, b1, i2, hq, 4 * C}, st);
+    return gemm_tiled<int8_t>(true, tile, n, w1, R, 4 * C, C,
+                              UpStatic{s1, b1, i2, hq, 4 * C}, st);
   if (mode != kQDyn || passes < kScan || passes > (kScan | kQuantize))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (passes & kScan)
-    err = gemm_s8(true, tile, n, w1, R, 4 * C, C,
-                  UpDynScan{nsc, s1, b1, amax}, st);
+    err = gemm_tiled<int8_t>(true, tile, n, w1, R, 4 * C, C,
+                             UpDynScan{nsc, s1, b1, amax}, st);
   if (err == cudaSuccess && (passes & kQuantize))
-    err = gemm_s8(true, tile, n, w1, R, 4 * C, C,
-                  UpDynQuant{nsc, s1, b1, amax, asc, hq, 4 * C}, st);
+    err = gemm_tiled<int8_t>(true, tile, n, w1, R, 4 * C, C,
+                             UpDynQuant{nsc, s1, b1, amax, asc, hq, 4 * C},
+                             st);
   return err;
 }
 
@@ -333,7 +313,7 @@ cudaError_t down(const void* h, const void* w2, const float* s2,
                                                      out, R, C, st);
   using BF = __nv_bfloat16;
   auto go = [&](auto epi) {
-    return gemm_s8(false, tile, h, w2, R, C, 4 * C, epi, st);
+    return gemm_tiled<int8_t>(false, tile, h, w2, R, C, 4 * C, epi, st);
   };
   const BF* xb = static_cast<const BF*>(x);
   const float* xf = static_cast<const float*>(x);
@@ -373,7 +353,8 @@ extern "C" int cpt_fused_block(
   float* nsc = rs;
   int* amax = rs ? reinterpret_cast<int*>(rs + R) : nullptr;
   float* asc = rs ? rs + 2 * R : nullptr;
-  cudaError_t err = cpt::prologue(p, n, nsc, amax, dw_bf16, x_bf16, mode, st);
+  cudaError_t err =
+      cpt::prologue(p, n, nsc, amax, nullptr, dw_bf16, x_bf16, mode, st);
   if (err == cudaSuccess)
     err = cpt::up(n, w1, s1, b1, i2, h, nsc, amax, asc, mode,
                   cpt::kScan | cpt::kQuantize, R, C, 0, st);
@@ -383,13 +364,16 @@ extern "C" int cpt_fused_block(
 }
 
 // Kernel A's launches on their own, to hold each against its plain version
-// and to time it. Mode 2: the prologue writes ``nsc`` [R] and zeroes
-// ``amax`` [R] (when not null); ``passes`` picks GEMM 1's scan pass (1, into
+// and to time it; kernel C runs the prologue and GEMM 1 through them. Mode
+// 2: the prologue writes ``nsc`` [R] and zeroes ``amax`` [R] (when not
+// null); modes 0 and 1: it zeroes ``keys`` [R] (when not null), kernel C's
+// argmax keys; ``passes`` picks GEMM 1's scan pass (1, into
 // ``amax``), quantize pass (2, from ``amax``, writes ``asc`` [R]) or both
 // (3); GEMM 2 reads ``asc``. ``tile`` (int8 GEMMs): 0 the chosen tile, 1-5
 // the candidates.
 extern "C" int cpt_block_prologue(const void* x, void* n, float* nsc,
-                                  int* amax, int dw_bf16, int x_bf16,
+                                  int* amax, unsigned long long* keys,
+                                  int dw_bf16, int x_bf16,
                                   int mode, int B, int H, int W, int C,
                                   const float* dwk, const float* dwb,
                                   const float* lns, const float* lnb,
@@ -398,7 +382,7 @@ extern "C" int cpt_block_prologue(const void* x, void* n, float* nsc,
   const cpt::BlockParams p = cpt::make_block_params(
       x, B, H, W, C, dwk, dwb, lns, lnb, nullptr, nullptr, nullptr, i1,
       nullptr, nullptr, nullptr, nullptr, nullptr, eps);
-  return (int)cpt::prologue(p, n, nsc, amax, dw_bf16, x_bf16, mode,
+  return (int)cpt::prologue(p, n, nsc, amax, keys, dw_bf16, x_bf16, mode,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -427,6 +411,6 @@ extern "C" int cpt_block_down(const void* h, const void* w2, const float* s2,
 extern "C" int cpt_sm90_gemm_s8(const void* a, const void* b, int* d, int M,
                                 int N, int K, void* stream) {
   const cpt::sm90::StoreS32 epi{d, N};
-  return (int)cpt::gemm_s8(N == 4 * K, 0, a, b, M, N, K, epi,
-                           static_cast<cudaStream_t>(stream));
+  return (int)cpt::gemm_tiled<int8_t>(N == 4 * K, 0, a, b, M, N, K, epi,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -358,7 +358,7 @@ def block_prologue(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
         if pb["dynamic"] else None
     p = _cuda.ptr
     code = _cuda.library().cpt_block_prologue(
-        x.data_ptr(), n.data_ptr(), p(nsc), None, int(dw_bf16),
+        x.data_ptr(), n.data_ptr(), p(nsc), None, None, int(dw_bf16),
         int(x.dtype == torch.bfloat16), _mode(pb), b, h, w, c, p(pb["dwk"]),
         p(pb["dwb"]), p(pb["lns"]), p(pb["lnb"]), p(pb["i1"]), float(eps),
         _cuda.stream_ptr(x.device))
@@ -414,7 +414,7 @@ def block_up(n, pb, tile: int = 0, amax=None):
     and the result ``(aq, asc)``: the scan pass, then the quantize pass;
     with the rows' GELU abs-max ``amax`` given, the quantize pass alone.
     ``tile`` (int8): 0 the tile kernel A takes, 1-5 the candidates it was
-    chosen from (ops/cuda/fused_block.cu: gemm_s8)."""
+    chosen from (ops/cuda/block.cuh: gemm_tiled)."""
     first = n[0] if pb["dynamic"] else n
     if first.device.type == "cpu":
         return block_up_plain(n, pb, amax)

@@ -10,7 +10,20 @@ count_pipnet_tpu/ops/pallas/gumbel_head.py:
 * :func:`gumbel_hard_counts` — the standalone head (kernel B,
   ops/cuda/gumbel_head.cu);
 * :func:`fused_block_gumbel_counts` — the last ConvNeXt block and the head
-  in one kernel (kernel C), so the last feature plane is never stored.
+  (kernel C), so the last feature plane is never stored.
+
+Kernel C is four launches (ops/cuda/gumbel_head.cu): kernel A's prologue
+and GEMM 1 (ops/fused_block.py: :func:`block_prologue`,
+:func:`block_up`), GEMM 2 with the head in its epilogue, which leaves each
+row's argmax as one 64-bit key (:func:`block_head_keys`), and a count
+kernel that turns the keys into counts (:func:`counts_from_keys`). Its
+plain version :func:`fused_block_gumbel_counts_plain` takes the argmax of
+the block's f32 output; the stages' plain versions
+(:func:`block_head_keys_plain`, :func:`counts_from_keys_plain`) compute
+the kernels' bits and compose to the same counts. :func:`block_down_f32`
+is GEMM 2 with that f32 output stored, the plane the head's argmax sees,
+for the checks. The stage wrappers count no launch; a call of
+:func:`fused_block_gumbel_counts` counts one.
 
 Noise: the TPU kernels draw from the TPU's on-core PRNG; the port draws
 Philox4x32-10 keyed by ``seed`` with counter (channel // 4, patch, image),
@@ -23,12 +36,17 @@ instead (the parity checks against the JAX package).
 import torch
 
 from . import cuda as _cuda
-from .fused_block import block_args, block_residual_plain, \
-    check_block_inputs
+from .fused_block import _block_down_f32, _mode, _operand_dtype, \
+    block_args, block_residual_plain, check_block_inputs
+from .fused_mlp import _aligned
+from .fused_mlp_bwd import _rows
 
 __all__ = ["philox4x32_10", "gumbel_noise", "gumbel_hard_counts",
            "gumbel_hard_counts_plain", "fused_block_gumbel_counts",
-           "fused_block_gumbel_counts_plain"]
+           "fused_block_gumbel_counts_plain", "block_head_keys",
+           "block_head_keys_plain", "counts_from_keys",
+           "counts_from_keys_plain", "block_down_f32",
+           "block_down_f32_plain"]
 
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -147,6 +165,12 @@ def fused_block_gumbel_counts_plain(x, pb, seed: int = 0, noise=None,
     return _histogram(res, _noise_for(noise, seed, b, h * w, c, x.device))
 
 
+def _kernel_c_mode(pb, what):
+    if pb["dynamic"]:
+        raise ValueError(f"{what}: kernel C carries the bf16 and int8-static "
+                         f"modes, not the dynamic per-row int8 mode")
+
+
 def fused_block_gumbel_counts(x, pb, seed: int = 0, noise=None,
                               eps: float = 1e-6):
     """Last ConvNeXt block + gumbel-hard head: NHWC ``x`` [B, H, W, C] and
@@ -155,20 +179,149 @@ def fused_block_gumbel_counts(x, pb, seed: int = 0, noise=None,
     modes as the TPU's fused head does; CPU tensor: the plain version."""
     if x.device.type == "cpu":
         return fused_block_gumbel_counts_plain(x, pb, seed, noise, eps)
+    _kernel_c_mode(pb, "fused_block_gumbel_counts")
     if x.device.type != "cuda":
         raise ValueError(f"fused_block_gumbel_counts: unsupported device "
                          f"{x.device}")
     check_block_inputs(x, pb)
-    if pb["dynamic"]:
-        raise ValueError("kernel C carries the bf16 and int8-static modes, "
-                         "not the dynamic per-row int8 mode")
+    _aligned(x, "fused_block_gumbel_counts: the plane")
     b, h, w, c = x.shape
+    r = b * h * w
     nz = _noise_arg(noise, b, h * w, c, x.device)
-    counts = torch.zeros(b, c, dtype=torch.float32, device=x.device)
+    # the launches' scratch: GEMM 1's and GEMM 2's operands, the rows' keys
+    n = torch.empty(r, c, dtype=_operand_dtype(pb), device=x.device)
+    hid = torch.empty(r, 4 * c, dtype=n.dtype, device=x.device)
+    keys = torch.empty(r, dtype=torch.int64, device=x.device)
+    counts = torch.empty(b, c, dtype=torch.float32, device=x.device)
     code = _cuda.library().cpt_fused_block_gumbel_counts(
         x.data_ptr(), *block_args(x, pb), float(eps), _cuda.ptr(nz),
-        counts.data_ptr(), int(seed) & (2**64 - 1),
-        _cuda.stream_ptr(x.device))
+        counts.data_ptr(), int(seed) & (2**64 - 1), n.data_ptr(),
+        hid.data_ptr(), keys.data_ptr(), _cuda.stream_ptr(x.device))
     _cuda.check(code, "fused_block_gumbel_counts")
     _cuda.count_launch("fused_block_gumbel_counts", c)
     return counts
+
+
+_SIGN = -(1 << 63)  # the top bit of an int64
+
+
+def block_head_keys_plain(res, noise):
+    """Plain version of kernel C's head GEMM from the block's f32 output
+    ``res`` [..., C]: each row's argmax of ``res + noise`` (``noise``: the
+    same values in any shape) as the 64-bit key of ops/cuda/common.cuh:
+    argmax_key, int64 [...] holding the unsigned word's bits: the high word
+    the value's bits mapped so that unsigned order is float order (-0 as
+    +0), the low word 0xFFFFFFFF - channel, the row's largest key in
+    unsigned order. NaN is key 0 and never wins; a row of NaN gives 0
+    (torch.argmax would take its first NaN)."""
+    v = res.float() + noise.reshape(res.shape).float()
+    c = v.shape[-1]
+    u = v.contiguous().view(torch.int32).to(torch.int64) & _MASK
+    u = torch.where(u == 0x80000000, 0, u)
+    hi = torch.where(u >= 0x80000000, u ^ _MASK, u | 0x80000000)
+    lo = _MASK - torch.arange(c, dtype=torch.int64, device=v.device)
+    # the key less 2^63, which orders as a signed int64 as the key does
+    # unsigned; NaN at the bottom
+    signed = (hi - (1 << 31)) * (1 << 32) + lo
+    signed = torch.where(torch.isnan(v), _SIGN, signed)
+    return signed.amax(dim=-1) ^ _SIGN
+
+
+def counts_from_keys_plain(keys, b: int, hw: int, c: int):
+    """Plain version of kernel C's count kernel: ``keys`` (``b`` images of
+    ``hw`` rows) -> [b, c] f32 counts of the channels they name; a key 0
+    (a row of NaN) counts nowhere."""
+    k = keys.reshape(b, hw)
+    ch = _MASK - (k & _MASK)
+    ok = (k != 0) & (ch < c)
+    counts = torch.zeros(b, c, dtype=torch.float32, device=keys.device)
+    return counts.scatter_add_(1, torch.where(ok, ch, 0), ok.float())
+
+
+def block_down_f32_plain(h, x, pb):
+    """GEMM 2 of the block on the hidden operand ``h`` and its epilogue,
+    the f32 block output ``x + (sum * s2 + b2) * g`` (int8: exact sums;
+    bf16: ``s2`` = 1), before any cast to ``x.dtype``."""
+    return _block_down_f32(h, x, pb)
+
+
+def _head_operands(h, x, pb, what):
+    """Kernel C's GEMM 2 operands checked: (hidden [R, 4C], plane)."""
+    _kernel_c_mode(pb, what)
+    c = x.shape[-1]
+    if h.shape[-1] != 4 * c or h.numel() // (4 * c) != x.numel() // c:
+        raise ValueError(f"{what}: hidden {tuple(h.shape)} for a plane "
+                         f"{tuple(x.shape)}: expected one row of 4C per "
+                         f"plane row")
+    if h.dtype != _operand_dtype(pb):
+        raise TypeError(f"{what}: the hidden operand is {h.dtype}, the "
+                        f"mode's operand {_operand_dtype(pb)}")
+    check_block_inputs(x, pb)
+    hf = _rows(h, 4 * c, f"{what}: the hidden operand", tma=True,
+               dtypes=(h.dtype,))
+    return hf, _aligned(x, f"{what}: the plane")
+
+
+def block_head_keys(h, x, pb, seed: int = 0, noise=None, tile: int = 0):
+    """Kernel C's GEMM 2 with the head epilogue alone (CUDA): hidden ``h``
+    [B, H, W, 4C] (bf16 or int8, as :func:`ops.fused_block.block_up`
+    gives it) and the plane ``x`` [B, H, W, C] -> each row's argmax key of
+    the block output plus the noise, int64 [B, H, W]; or
+    :func:`block_head_keys_plain` of :func:`block_down_f32_plain` (CPU).
+    ``tile``: 0 the tile kernel C takes, 1-5 the candidates
+    (ops/cuda/block.cuh: gemm_tiled)."""
+    _kernel_c_mode(pb, "block_head_keys")
+    b, hh, w, c = x.shape
+    if x.device.type == "cpu":
+        nz = _noise_for(noise, seed, b, hh * w, c, x.device)
+        return block_head_keys_plain(block_down_f32_plain(h, x, pb), nz)
+    hf, x = _head_operands(h, x, pb, "block_head_keys")
+    nz = _noise_arg(noise, b, hh * w, c, x.device)
+    keys = torch.zeros(b, hh, w, dtype=torch.int64, device=x.device)
+    p = _cuda.ptr
+    code = _cuda.library().cpt_block_head_keys(
+        p(hf), p(pb["w2"]), p(pb["s2"]), p(pb["b2"]), p(pb["g"]), p(x),
+        int(x.dtype == torch.bfloat16), p(nz), p(keys), _mode(pb),
+        hf.shape[0], hh * w, c, int(seed) & (2**64 - 1), int(tile),
+        _cuda.stream_ptr(x.device))
+    _cuda.check(code, "block_head_keys")
+    return keys
+
+
+def counts_from_keys(keys, b: int, hw: int, c: int):
+    """Kernel C's count kernel alone (CUDA): ``keys`` of ``b`` images of
+    ``hw`` rows -> [b, c] f32 counts; or :func:`counts_from_keys_plain`
+    (CPU)."""
+    if keys.device.type == "cpu":
+        return counts_from_keys_plain(keys, b, hw, c)
+    if keys.dtype != torch.int64 or keys.numel() != b * hw:
+        raise ValueError(f"counts_from_keys: expected {b * hw} int64 keys, "
+                         f"got {tuple(keys.shape)} {keys.dtype}")
+    if keys.device.type != "cuda":
+        raise ValueError(f"counts_from_keys: unsupported device "
+                         f"{keys.device}")
+    kf = keys.reshape(-1).contiguous()
+    counts = torch.empty(b, c, dtype=torch.float32, device=keys.device)
+    code = _cuda.library().cpt_count_keys(
+        kf.data_ptr(), counts.data_ptr(), b, hw, c,
+        _cuda.stream_ptr(keys.device))
+    _cuda.check(code, "counts_from_keys")
+    return counts
+
+
+def block_down_f32(h, x, pb):
+    """Kernel C's GEMM 2 with the f32 block output stored (CUDA), the plane
+    its head takes the argmax of: [B, H, W, C] f32; or
+    :func:`block_down_f32_plain` (CPU)."""
+    _kernel_c_mode(pb, "block_down_f32")
+    if x.device.type == "cpu":
+        return block_down_f32_plain(h, x, pb)
+    hf, x = _head_operands(h, x, pb, "block_down_f32")
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    p = _cuda.ptr
+    code = _cuda.library().cpt_block_down_f32(
+        p(hf), p(pb["w2"]), p(pb["s2"]), p(pb["b2"]), p(pb["g"]), p(x),
+        int(x.dtype == torch.bfloat16), p(out), _mode(pb), hf.shape[0],
+        x.shape[-1], _cuda.stream_ptr(x.device))
+    _cuda.check(code, "block_down_f32")
+    return out

@@ -49,15 +49,12 @@ def build_log(tree):
 
 # Template arguments renamed since an entry's earlier form, so that the two
 # builds' entries match: the K-major GEMM core's operand type (bf16 unless
-# s8; a template argument since the s8 mode), kernel A's prologue mode (a
-# bool until it gained the dynamic mode) and kernel C's body (HEAD and
-# DWBF arguments until it served kernel C alone)
+# s8; a template argument since the s8 mode) and kernel A's prologue mode
+# (a bool until it gained the dynamic mode)
 RENAMES = ((re.compile(r"^(void cpt::sm90::gemm_kernel<.*), __nv_bfloat16>$"),
             r"\1>"),
            (re.compile(r"(block_prologue_kernel<[^,]+, )true,"), r"\g<1>1,"),
-           (re.compile(r"(block_prologue_kernel<[^,]+, )false,"), r"\g<1>0,"),
-           (re.compile(r"(fused_block_kernel<[^,]+, \d), true, false>"),
-            r"\1>"))
+           (re.compile(r"(block_prologue_kernel<[^,]+, )false,"), r"\g<1>0,"))
 
 
 def without_parameters(name):

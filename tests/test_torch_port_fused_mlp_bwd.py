@@ -92,18 +92,33 @@ def _stages(x, g, q, eps=1e-6):
     return dx, dls, dlb, dw1, db1, dw2, db2, dgamma
 
 
+@pytest.fixture
+def one_thread():
+    """PyTorch's CPU operations on one thread for the test. Outside its
+    conditional-reproducibility mode (MKL_CBWR, fixed before MKL loads)
+    MKL does not promise the same bits from two calls of a multithreaded
+    GEMM on the same operands: its threads' share of the work may change
+    from call to call."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("c", [32, 96])
 @pytest.mark.parametrize("g_dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("x_dt", [torch.float32, torch.bfloat16])
-def test_k6_stages_compose_to_one_pass_plain(x_dt, g_dt, c):
+def test_k6_stages_compose_to_one_pass_plain(x_dt, g_dt, c, one_thread):
     """The five stage plain versions compose to the one-body plain version
     bit for bit (the split rounds where the body did), through
     fused_mlp_bwd_plain and called one by one. 300 rows, not a multiple of
-    the kernels' 128-row tiles; [..., C] inputs of three dimensions."""
+    the kernels' 128-row tiles; [..., C] inputs of three dimensions, in
+    PyTorch's own 64-byte aligned memory (numpy's heap alignment varies
+    with what ran before in the process), on one thread."""
     p = _setup(300, c, seed=11)
-    x = torch.from_numpy(p["x"]).to(x_dt).reshape(3, 100, c)
-    g = torch.from_numpy(p["g"]).to(g_dt).reshape(3, 100, c)
-    q = _params(p)
+    x = torch.from_numpy(p["x"]).to(x_dt).reshape(3, 100, c).clone()
+    g = torch.from_numpy(p["g"]).to(g_dt).reshape(3, 100, c).clone()
+    q = {k: v.clone() for k, v in _params(p).items()}
     want = _one_pass_plain(x, g, **q)
     got = fused_mlp_bwd_plain(x, g, **q)
     stages = _stages(x.reshape(-1, c), g.reshape(-1, c), q)
