@@ -73,9 +73,12 @@ _SIGNATURES = {
     # h (scratch), rs (row-scale scratch, dynamic mode), stream
     "cpt_fused_block": [_P, _P, _I] + _BLOCK_ARGS + [_P, _P, _P, _P],
     # kernel A's launches: x, n, nsc, amax, keys, dw_bf16, x_bf16, mode, B,
-    # H, W, C, dwk, dwb, lns, lnb, i1, eps, stream
+    # H, W, C, dwk, dwb, lns, lnb, i1, eps, the halo tile (tr, cs), stream
     "cpt_block_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P, _F, _P],
+                           _P, _P, _P, _P, _P, _F, _I, _I, _P],
+    # the halo tile a launch takes: prologue, H, W, C, elt, dw_bf16,
+    # plan (int [4], in and out)
+    "cpt_dw_plan": [_I, _I, _I, _I, _I, _I, _IP],
     # n, w1, s1, b1, i2, h, nsc, amax, asc, mode, passes, R, C, tile, stream
     "cpt_block_up": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
@@ -133,8 +136,9 @@ _SIGNATURES = {
     "cpt_mlp_bwd_ln": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P],
     # the MN-major GEMM core: a, b, out, ws, R, M, N, splits, stream
     "cpt_mlp_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, out, x_bf16, out_bf16, B, H, W, C, w, bias, stream
-    "cpt_dwconv7": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # x, out, x_bf16, out_bf16, B, H, W, C, w, bias, the halo tile (tr,
+    # cs, segs), stream
+    "cpt_dwconv7": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P],
     # x, g, bf16, B, H, W, C, seg, chunks, part, out, stream
     "cpt_dwconv7_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # x, x_bf16, w, bias, xhi, xlo, stats, logits, part (scratch), counts,

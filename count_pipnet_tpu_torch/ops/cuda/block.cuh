@@ -3,9 +3,17 @@
 //   dwconv7x7 + bias -> LayerNorm -> pw1 (C -> 4C) -> tanh-GELU
 //     -> pw2 (4C -> C) -> * layer_scale -> + residual
 //
-// - the depthwise window walk (dw7_walk, dw7_dot, block_dw_rows), which
-//   kernel A's prologue (fused_block.cu), K7 (dwconv.cu) and K8
-//   (dwconv_wgrad.cu) use;
+// - the depthwise 7x7 as a shared-memory halo tile (DwPlan,
+//   make_plane_map, dw_tile_fill, dw7_tile_run, dw_tile_slab), which K7
+//   (dwconv.cu) and kernel A's prologue (fused_block.cu, block_dw_tile)
+//   use: a CTA copies a rectangle of the NHWC plane, whole image rows with
+//   their 3-pixel halo and one slab of channels, into shared memory as one
+//   TMA box (the TMA writes zeros past the plane: SAME padding), then every
+//   output of the rectangle is computed from shared memory with no bounds
+//   check, by a 7x7 window that slides along the row in registers (7
+//   shared loads a pixel);
+// - the per-output arithmetic, pinned (dw7_dot), and the older window walk
+//   over global memory (dw7_walk), which K8 (dwconv_wgrad.cu) alone uses;
 // - the arithmetic of each step as __device__ functions with their
 //   floating-point contraction pinned (ln_stats, ln_value, quant_scaled,
 //   up_static, up_dyn, block_out), so that every launch that computes a
@@ -16,6 +24,7 @@
 //   (gemm_tiled).
 #pragma once
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -23,7 +32,6 @@
 
 namespace cpt {
 
-constexpr int kTM = 32;        // patch rows per CTA of the prologue
 constexpr int kThreads = 256;  // 8 warps
 
 // GEMM operand modes: bf16, int8 with calibrated static scales, int8 with
@@ -109,16 +117,9 @@ __device__ __forceinline__ float block_out(float x, float v, float s,
   return __fadd_rn(x, __fmul_rn(__fadd_rn(__fmul_rn(v, s), b), g));
 }
 
-// The depthwise 7x7 (stride 1, pad 3) of one channel ``c`` over a run of
-// ``n`` consecutive pixels of the flattened [B*H*W, C] plane, from pixel
-// ``start`` on, walked in order with the 7x7 input window in registers:
-// along an image row the window slides one column, so a pixel costs 7
-// loads, not 49. ``visit(i, win)`` is called for each pixel start + i below
-// ``total`` with win[dy][dx] = x[y + dy - 3, x + dx - 3] (0 outside the
-// image: the halo by bounds checks), ``skip(i)`` for each pixel past it.
-// The window holds WT values: f32, or for kernel A's bf16 taps the channel
-// pair (c, c + 1) as one bf16x2 (load_tap).
-// Kernel A, K5's sibling K7 (dwconv.cu) and K8 (dwconv_wgrad.cu) share it.
+// The halo tile's tap loads: WT is the window type, f32, or for kernel A's
+// bf16 taps the channel pair (c, c + 1) as one bf16x2; T the plane's type
+// (global or shared memory).
 template <typename WT, typename T>
 __device__ __forceinline__ WT load_tap(const T* p) {
   if constexpr (std::is_same_v<WT, float>) {
@@ -130,31 +131,31 @@ __device__ __forceinline__ WT load_tap(const T* p) {
   }
 }
 
-template <typename WT>
-__device__ __forceinline__ WT zero_tap() {
-  if constexpr (std::is_same_v<WT, float>) {
-    return 0.0f;
-  } else {
-    return __float2bfloat162_rn(0.0f);
-  }
-}
-
-template <typename WT = float, typename T, typename Visit, typename Skip>
+// K8's window walk (dwconv_wgrad.cu; K7 and kernel A's prologue take the
+// halo tile below): the depthwise 7x7 (stride 1, pad 3) window of one
+// channel ``c`` over a run of ``n`` consecutive pixels of the flattened
+// [B*H*W, C] plane in global memory, from pixel ``start`` on, walked in
+// order with the 7x7 input window in registers: along an image row the
+// window slides one column, so a pixel costs 7 loads, not 49.
+// ``visit(i, win)`` is called for each pixel start + i below ``total`` with
+// win[dy][dx] = x[y + dy - 3, x + dx - 3] in f32 (0 outside the image: the
+// halo by bounds checks), ``skip(i)`` for each pixel past it.
+template <typename T, typename Visit, typename Skip>
 __device__ __forceinline__ void dw7_walk(const T* x, int H, int W, int C,
                                          int c, int start, int n, int total,
                                          Visit visit, Skip skip) {
   const int HW = H * W;
   int b = start / HW, y = (start - b * HW) / W;
   int xq = start - b * HW - y * W;
-  WT win[7][7];
+  float win[7][7];
   bool slide = false;  // window holds the previous pixel of this row
   for (int i = 0; i < n; ++i) {
     if (start + i < total) {
       const T* xb = x + (size_t)b * HW * C + c;
-      auto ld = [&](int yy, int xx) -> WT {
+      auto ld = [&](int yy, int xx) -> float {
         return (yy < 0 || yy >= H || xx < 0 || xx >= W)
-                   ? zero_tap<WT>()
-                   : load_tap<WT>(xb + (size_t)(yy * W + xx) * C);
+                   ? 0.0f
+                   : to_f32(xb[(size_t)(yy * W + xx) * C]);
       };
       if (slide) {
 #pragma unroll
@@ -228,62 +229,287 @@ __device__ __forceinline__ float2 dw7_dot(const __nv_bfloat162 (&win)[7][7],
   return d;
 }
 
-// Step 1a of a CTA that owns the kTM rows from ``row0``: depthwise 7x7 +
-// bias into ``accf`` ([kTM, C] f32, row stride ``as``), zeros past the
-// plane's end. A thread owns one channel (DWBF: a channel pair, in bf16x2)
-// and a run of the CTA's rows (dw7_walk: the 7x7 window and the 49 taps in
-// registers). Neighbouring threads read neighbouring channels (coalesced).
-// Below 256 channels (pairs) the rows are split into segs runs so more
-// threads work. The f32 and bf16 tap branches stay apart: written as one
-// loop over 1 or 2 channels a thread, the f32-tap instantiations rose from
-// 127-128 to 130-162 registers and ran up to 1.4 times slower (H100).
-// Kernel A's prologue (fused_block.cu) runs it.
-template <typename T, bool DWBF>
-__device__ __forceinline__ void block_dw_rows(const BlockParams& p,
-                                              float* accf, int as,
-                                              int row0) {
-  const int C = p.C, total = p.B * p.H * p.W, tid = threadIdx.x;
-  const T* x = static_cast<const T*>(p.x);
-  if constexpr (DWBF) {
-    const int C2 = C / 2;
-    int segs = 1;  // a power of two, so that it divides kTM
-    while (2 * segs * C2 <= kThreads && 2 * segs <= 8) segs *= 2;
-    const int seg_rows = kTM / segs;
-    for (int t = tid; t < C2 * segs; t += kThreads) {
-      const int c = 2 * (t % C2), r0 = (t / C2) * seg_rows;
-      __nv_bfloat162 wk[49];
+// The depthwise 7x7 as a shared-memory halo tile, K7's (dwconv.cu) and
+// kernel A's prologue's (block_dw_tile, fused_block.cu). A CTA owns ``tr``
+// whole rows of one image (fewer in the image's last strip) and walks the
+// channels in slabs of ``cs``: for each slab it copies the (tr + 6) x
+// (W + 6) x cs rectangle of the plane around its rows into shared memory,
+// [row][column][channel], channel fastest, in the plane's type, as one TMA
+// box that reads zeros past the plane (the halo outside the image, the
+// rows past the last, the channels past C: SAME padding), so the walk has
+// no bounds check. The threads split the slab into units of one channel (a
+// channel pair for bf16 taps), neighbouring threads on neighbouring units
+// (conflict-free shared loads), and the rows into ``segs`` pieces a row;
+// thread (unit, j) walks pieces j, j + runs, ... with the taps in
+// registers. One slab buffer: a second, copying slab s + 1 while slab s was
+// summed, was never more than 2 % faster (H100).
+struct DwPlan {
+  int tr;    // image rows a CTA
+  int cs;    // channels a slab: 32, 64, 128 or 256
+  int segs;  // pieces a row (0: kThreads / units / tr, at least 1; the
+             // prologue always 0, K7's tile sweep varies it)
+};
+
+// Elements of the slab buffer, the tile of tr rows [tr + 6][W + 6][cs],
+// rounded up so that what follows it starts 128-byte aligned (TMA).
+__host__ __device__ inline size_t dw_tile_elems(const DwPlan& pl, int W) {
+  return ((size_t)(pl.tr + 6) * (W + 6) * pl.cs + 63) / 64 * 64;
+}
+// Bytes of one slab's copy, the box.
+__host__ __device__ inline int dw_box_bytes(const DwPlan& pl, int W,
+                                            int elt) {
+  return (pl.tr + 6) * (W + 6) * pl.cs * elt;
+}
+
+// The halo tile's copy is one TMA box of the NHWC plane, seen as the 4-D
+// tensor [B, H, W, C] (C fastest): the box [1, tr + 6, W + 6, cs] at
+// (image b, row y0 - 3, column -3, channel c0). The TMA writes zeros for
+// the coordinates past the plane (the SAME padding, and the channels past
+// C), so a slab's copy is one instruction of one thread, counted by an
+// mbarrier (16-byte cp.async copies, some 1,800 a slab at 26^2 x 768, left
+// the prologue 1.4 times slower there; scripts/dw_tiles.py, H100).
+// The box's size is the map's: the last strip of an image copies tr + 6
+// rows too (its rows past H are zeros). TMA needs a 16-byte aligned plane
+// and row strides (C * elt % 16 == 0) and at most 256 in each box
+// dimension.
+inline cudaError_t make_plane_map(CUtensorMap* map, const void* x, int B,
+                                  int H, int W, int C, int elt,
+                                  const DwPlan& pl) {
+  const sm90::EncodeTiledFn enc = sm90::encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  if ((reinterpret_cast<uintptr_t>(x) & 15) || (C * elt) % 16 ||
+      W + 6 > 256 || pl.tr + 6 > 256 || pl.cs > 256)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * elt,
+                                 (cuuint64_t)W * C * elt,
+                                 (cuuint64_t)H * W * C * elt};
+  const cuuint32_t box[4] = {(cuuint32_t)pl.cs, (cuuint32_t)W + 6,
+                             (cuuint32_t)pl.tr + 6, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map,
+      elt == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      4, const_cast<void*>(x), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Thread 0 issues the copy of the slab from channel c0 of the strip from
+// (b, y0) into ``tile`` (128-byte aligned), counted by ``bar``; the
+// threads then wait on ``bar`` (sm90::mbar_wait).
+__device__ __forceinline__ void dw_tile_fill(void* tile, const CUtensorMap* map,
+                                             uint64_t* bar, int bytes, int b,
+                                             int y0, int c0) {
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(bar, bytes);
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+            sm90::smem_addr(tile)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90::smem_addr(bar)),
+        "r"(c0), "r"(-3), "r"(y0 - 3), "r"(b)
+        : "memory");
+  }
+}
+
+// The slab buffer's mbarrier, one arrival (thread 0's) a phase.
+__device__ __forceinline__ void dw_bar_init(uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The n outputs of one unit along a tile row, from ``t``, the unit's value
+// at the top-left of the first output's window (``pix`` elements between
+// columns, ``row`` between rows): visit(i, win) with win[dy][dx] the 7x7
+// window of output i. The window slides one column a pixel (7 loads); its
+// columns sit in a ring unrolled by 7, so the slide moves no register.
+template <typename WT, typename TT, typename Visit>
+__device__ __forceinline__ void dw7_tile_run(const TT* t, int pix, int row,
+                                             int n, Visit visit) {
+  WT ring[7][7];
 #pragma unroll
-      for (int i = 0; i < 49; ++i)
-        wk[i] = load_tap<__nv_bfloat162>(p.dwk + i * C + c);
-      const float2 bias = *reinterpret_cast<const float2*>(p.dwb + c);
-      dw7_walk<__nv_bfloat162>(
-          x, p.H, p.W, C, c, row0 + r0, seg_rows, total,
-          [&](int i, const __nv_bfloat162(&win)[7][7]) {
-            *reinterpret_cast<float2*>(accf + (r0 + i) * as + c) =
-                dw7_dot(win, wk, bias);
-          },
-          [&](int i) {
-            *reinterpret_cast<float2*>(accf + (r0 + i) * as + c) =
-                make_float2(0.0f, 0.0f);
-          });
-    }
-  } else {
-    const int segs = C >= kThreads ? 1 : kThreads / C;  // 1, 2, 4 or 8
-    const int seg_rows = kTM / segs;
-    for (int t = tid; t < C * segs; t += kThreads) {
-      const int c = t % C, r0 = (t / C) * seg_rows;
-      float wk[49];
+  for (int k = 0; k < 6; ++k)
 #pragma unroll
-      for (int i = 0; i < 49; ++i) wk[i] = p.dwk[i * C + c];
-      const float bias = p.dwb[c];
-      dw7_walk(
-          x, p.H, p.W, C, c, row0 + r0, seg_rows, total,
-          [&](int i, const float(&win)[7][7]) {
-            accf[(r0 + i) * as + c] = dw7_dot(win, wk, bias);
-          },
-          [&](int i) { accf[(r0 + i) * as + c] = 0.0f; });
+    for (int dy = 0; dy < 7; ++dy)
+      ring[dy][k] = load_tap<WT>(t + dy * row + k * pix);
+  for (int i = 0; i < n; i += 7) {
+#pragma unroll
+    for (int s = 0; s < 7; ++s) {
+      if (i + s < n) {
+        const TT* q = t + (i + s + 6) * pix;
+#pragma unroll
+        for (int dy = 0; dy < 7; ++dy)
+          ring[dy][(s + 6) % 7] = load_tap<WT>(q + dy * row);
+        WT win[7][7];
+#pragma unroll
+        for (int dy = 0; dy < 7; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 7; ++dx) win[dy][dx] = ring[dy][(s + dx) % 7];
+        visit(i + s, win);
+      }
     }
   }
+}
+
+// One slab's outputs from its tile: each thread loads its unit's 49 taps,
+// tap k of channel c at w[k * tap_stride + (c - wc0) * ch_stride] (global
+// memory, wc0 = 0, or the slab's taps in shared memory, wc0 = c0), and
+// bias, then every thread calls ready() (kernel A: waits for the tile, so
+// that the taps' loads overlap its copy), then walks its pieces;
+// visit(r, x, c, d) for output (row r of the CTA, column x, channel c) with
+// d = dw7_dot (float, or float2 for channels c, c + 1).
+template <typename WT, typename TT, typename Ready, typename Visit>
+__device__ __forceinline__ void dw_tile_slab(const TT* tile, const DwPlan& pl,
+                                             int rows, int W, int C, int c0,
+                                             const float* w, int wc0,
+                                             int tap_stride, int ch_stride,
+                                             const float* bias, Ready ready,
+                                             Visit visit) {
+  constexpr int kU = std::is_same_v<WT, float> ? 1 : 2;  // channels a unit
+  using D = std::conditional_t<kU == 1, float, float2>;
+  const int units = pl.cs / kU, runs = blockDim.x / units;
+  const int u = threadIdx.x % units, j = threadIdx.x / units;
+  const int c = c0 + u * kU;
+  const bool live = c < C;
+  WT wk[49];
+  D b;
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < 49; ++k)
+      wk[k] = load_tap<WT>(w + k * tap_stride + (c - wc0) * ch_stride);
+    b = *reinterpret_cast<const D*>(bias + c);
+  }
+  ready();
+  if (!live) return;
+  const int segs = pl.segs ? pl.segs : max(1, runs / pl.tr);
+  const int row = (W + 6) * pl.cs;
+  for (int k = j; k < rows * segs; k += runs) {
+    const int r = k / segs, s = k % segs;
+    const int x0 = s * W / segs, x1 = (s + 1) * W / segs;
+    if (x1 > x0)
+      dw7_tile_run<WT>(tile + r * row + x0 * pl.cs + u * kU, pl.cs, row,
+                       x1 - x0, [&](int i, const WT(&win)[7][7]) {
+                         visit(r, x0 + i, c, dw7_dot(win, wk, b));
+                       });
+  }
+}
+
+// Kernel A's step 1a for a CTA that owns ``rows`` image rows from (b, y0):
+// depthwise 7x7 + bias into ``accf`` ([rows * W, C] f32, row stride
+// ``as``), slab by slab through the tile buffer ``tile`` (128-byte
+// aligned, its mbarrier ``bar``). DWBF: bf16 taps on channel pairs. The
+// f32 and bf16 tap branches stay apart (dw_tile_slab's WT): written as one
+// loop over 1 or 2 channels a thread, the older walk's f32-tap
+// instantiations rose from 127-128 to 130-162 registers and ran up to 1.4
+// times slower (H100).
+template <typename T, bool DWBF>
+__device__ __forceinline__ void block_dw_tile(const BlockParams& p,
+                                              const DwPlan& pl,
+                                              const CUtensorMap* map,
+                                              float* accf, int as, T* tile,
+                                              uint64_t* bar, int b, int y0,
+                                              int rows) {
+  using WT = std::conditional_t<DWBF, __nv_bfloat162, float>;
+  const int C = p.C, W = p.W;
+  const int nslab = (C + pl.cs - 1) / pl.cs;
+  const int bytes = dw_box_bytes(pl, W, sizeof(T));
+  dw_bar_init(bar);
+  dw_tile_fill(tile, map, bar, bytes, b, y0, 0);
+  for (int s = 0; s < nslab; ++s) {
+    dw_tile_slab<WT>(tile, pl, rows, W, C, s * pl.cs, p.dwk, 0, C, 1, p.dwb,
+                     [&] { sm90::mbar_wait(bar, s & 1); },
+                     [&](int r, int xx, int c, auto d) {
+                       *reinterpret_cast<decltype(d)*>(
+                           accf + (r * W + xx) * as + c) = d;
+                     });
+    __syncthreads();  // the buffer is free, and accf whole after the last
+    if (s + 1 < nslab)
+      dw_tile_fill(tile, map, bar, bytes, b, y0, (s + 1) * pl.cs);
+  }
+}
+
+// The plans' host side. A CTA takes at most kSmemMax bytes of shared
+// memory; two CTAs share an SM at most kSmemTwo each (228 KB an SM, 1 KB of
+// it reserved a CTA).
+constexpr int kSmemMax = 232448;
+constexpr int kSmemTwo = 115712;
+
+inline bool dw_plan_ok(const DwPlan& pl, bool dwbf) {
+  const int units = pl.cs / (dwbf ? 2 : 1);
+  return pl.tr >= 1 && pl.segs >= 0 &&
+         (pl.cs == 32 || pl.cs == 64 || pl.cs == 128 || pl.cs == 256) &&
+         kThreads % units == 0;
+}
+
+// tr evened out over the strips of an image of H rows (26 rows at tr = 8:
+// four strips of 7, 7, 7 and 5, not 8, 8, 8 and 2)
+inline int dw_even_rows(int tr, int H) {
+  const int strips = (H + tr - 1) / tr;
+  return (H + strips - 1) / strips;
+}
+
+// Kernel A's prologue: accf [tr * W, C + 8] f32, then from the next
+// 128-byte boundary the slab buffer (at least the LayerNorm's three f32
+// vectors), then its mbarrier.
+__host__ __device__ inline size_t dw_accf_bytes(const DwPlan& pl, int W,
+                                                int C) {
+  return ((size_t)pl.tr * W * (C + 8) * 4 + 127) / 128 * 128;
+}
+__host__ __device__ inline size_t dw_slabs_bytes(const DwPlan& pl, int W,
+                                                 int C, int elt) {
+  const size_t tile = dw_tile_elems(pl, W) * elt;
+  return tile > (size_t)12 * C ? tile : (size_t)12 * C;
+}
+inline size_t dw_prologue_smem(const DwPlan& pl, int W, int C, int elt) {
+  return dw_accf_bytes(pl, W, C) + dw_slabs_bytes(pl, W, C, elt) + 8;
+}
+
+// ``req`` evened out (segs 0: one piece a thread and row where the threads
+// of a unit outnumber the rows), or with req.tr == 0 the chosen plan;
+// tr == 0 where none fits. Chosen (scripts/dw_tiles.py, H100): one or two
+// rows (three were up to 1.2 times slower at 32 images: fewer CTAs); of
+// those plans that leave room for two
+// CTAs an SM, the one whose threads sum the most channel outputs a slab,
+// up to 14 a thread (longer pieces were no faster), then the most rows
+// (less halo), then the narrowest slab: <2,32> at 56^2 x 96, <2,64> at
+// 28^2 x 192, <1,128> at 27^2 x 384, with either tap type; no slab wider
+// than C needs. Where that leaves a thread fewer than 12 (26^2 x 768: 6.5
+// at <1,64>), the same choice among the plans for one CTA an SM (<2,128>,
+// 1.1-1.2 times faster there).
+inline DwPlan dw_prologue_plan(DwPlan req, int H, int W, int C, int elt,
+                               bool dwbf) {
+  DwPlan pl{req.tr, req.cs, 0};
+  if (req.tr == 0) {
+    pl = {1, 32, 0};
+    long best = -1;
+    for (const size_t room : {(size_t)kSmemTwo, (size_t)kSmemMax}) {
+      for (int tr = 1; tr <= 2; ++tr)
+        for (int cs = 32; cs <= 256; cs *= 2) {
+          const DwPlan c{dw_even_rows(tr, H), cs, 0};
+          if (c.tr != tr || cs >= C + 32 ||
+              dw_prologue_smem(c, W, C, elt) > room)
+            continue;
+          const long outs = std::min((long)tr * W * cs, 14L * kThreads);
+          const long score = (outs * 4 + tr) * 8 + (8 - __builtin_ctz(cs));
+          if (score > best) {
+            best = score;
+            pl = c;
+          }
+        }
+      if (best >= 12L * kThreads * 32) break;
+    }
+  }
+  pl.tr = dw_even_rows(pl.tr, H);
+  if (!dw_plan_ok(pl, dwbf) || dw_prologue_smem(pl, W, C, elt) > kSmemMax)
+    pl.tr = 0;
+  return pl;
 }
 
 inline BlockParams make_block_params(

@@ -18,8 +18,10 @@
 // kernel A is launches on the stream, three in the bf16 and int8-static
 // modes:
 //   a. block_prologue_kernel: depthwise 7x7 + bias (block.cuh:
-//      block_dw_rows), LayerNorm (ln_stats, ln_value), then the cast (bf16)
-//      or the static quantization (int8: quant_scaled(n, i1)) into n [R, C].
+//      block_dw_tile, the shared-memory halo tile K7 also runs), LayerNorm
+//      (ln_stats, ln_value), then the cast (bf16) or the static
+//      quantization (int8: quant_scaled(n, i1)) into n [R, C]. A CTA owns
+//      whole image rows, a contiguous range of n's rows.
 //   b. GEMM 1, n . W1^T, on sm90.cuh's TMA-fed wgmma core: bf16, K5's
 //      up_gelu (fused_mlp.cu) -> bf16 hidden; int8-static, the core's s8
 //      mode with the epilogue up_static -> int8 hidden [R, 4C].
@@ -64,53 +66,104 @@ extern "C" int cpt_mlp_down_residual(const void* h, const void* w2,
 namespace cpt {
 namespace {
 
-// a. the prologue: a CTA owns kTM rows, and two CTAs share an SM (at most
-// 128 registers a thread). Unbounded, the bf16-tap instantiations took
-// 161-163 registers and one CTA an SM; kernel A ran 5-17 % slower so
-// (H100). ``Q``: the operand mode (block.cuh: kQ*); ``nsc`` and ``amax``
-// (kQDyn): each row's scale, and its GELU abs-max slot, zeroed here for
-// GEMM 1's scan pass (null: left alone); ``keys``: each row's argmax key
-// slot, zeroed here for kernel C's GEMM 2 (null: left alone).
+// a. the prologue: a CTA owns pl.tr whole image rows of one image (fewer in
+// its last strip), rows * W rows of n from row0, and two CTAs share an SM
+// (at most 128 registers a thread) where the plan's shared memory allows.
+// Unbounded, the bf16-tap instantiations of the older walk took 161-163
+// registers and one CTA an SM; kernel A ran 5-17 % slower so (H100).
+// Shared memory: accf [pl.tr * W, C + 8] f32, the depthwise sums the
+// LayerNorm reads, then the halo tile's slab buffer (block.cuh:
+// block_dw_tile), which then holds the LayerNorm's scale, bias and (int8
+// static) quantization vectors, C floats each. ``Q``: the operand mode
+// (block.cuh: kQ*); ``nsc`` and ``amax`` (kQDyn): each row's scale, and its
+// GELU abs-max slot, zeroed here for GEMM 1's scan pass (null: left alone);
+// ``keys``: each row's argmax key slot, zeroed here for kernel C's GEMM 2
+// (null: left alone).
 template <typename T, int Q, bool DWBF>
 __global__ void __launch_bounds__(kThreads, 2)
-    block_prologue_kernel(const BlockParams p, void* n, float* nsc,
-                          int* amax, unsigned long long* keys) {
-  extern __shared__ __align__(16) unsigned char pro_smem[];
-  float* accf = reinterpret_cast<float*>(pro_smem);  // [kTM, C + 8]
-  const int C = p.C, total = p.B * p.H * p.W, as = C + 8;
-  const int row0 = blockIdx.x * kTM;
+    block_prologue_kernel(const __grid_constant__ CUtensorMap map,
+                          const BlockParams p, const DwPlan pl, void* n,
+                          float* nsc, int* amax, unsigned long long* keys) {
+  extern __shared__ __align__(1024) unsigned char pro_smem[];
+  const int C = p.C, W = p.W, as = C + 8;
+  const int strips = (p.H + pl.tr - 1) / pl.tr;
+  const int b = blockIdx.x / strips, y0 = (blockIdx.x % strips) * pl.tr;
+  const int rows = min(pl.tr, p.H - y0);
+  const int row0 = (b * p.H + y0) * W, npix = rows * W;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  block_dw_rows<T, DWBF>(p, accf, as, row0);
+  float* accf = reinterpret_cast<float*>(pro_smem);
+  unsigned char* slabs = pro_smem + dw_accf_bytes(pl, W, C);
+  T* tile = reinterpret_cast<T*>(slabs);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      slabs + dw_slabs_bytes(pl, W, C, sizeof(T)));
+  block_dw_tile<T, DWBF>(p, pl, &map, accf, as, tile, bar, b, y0, rows);
+  // The LayerNorm's channel vectors into the slab buffer, which the
+  // depthwise sums are done with: read from global memory, each value of
+  // the row loop waited on its own loads (a CTA at 26^2 x 768 spent 29 % of
+  // its time there, H100).
+  float* lns = reinterpret_cast<float*>(tile);
+  float* lnb = lns + C;
+  float* i1 = lnb + C;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    lns[c] = p.lns[c];
+    lnb[c] = p.lnb[c];
+    if constexpr (Q == kQStatic) i1[c] = p.i1[c];
+  }
   __syncthreads();
-  for (int r = warp; r < kTM; r += kThreads / 32) {
+  // Each row's statistics lane-strided (ln_stats' order); its values, which
+  // depend on no order, four channels a lane.
+  for (int r = warp; r < npix; r += kThreads / 32) {
     const int row = row0 + r;
-    if (row >= total) break;
-    const float* d = accf + r * as;
+    float* d = accf + r * as;
     const float2 st = ln_stats(d, C, p.eps, lane);
+    auto value4 = [&](int c) {
+      const float4 x = *reinterpret_cast<const float4*>(d + c);
+      const float4 s = *reinterpret_cast<const float4*>(lns + c);
+      const float4 t = *reinterpret_cast<const float4*>(lnb + c);
+      return make_float4(ln_value(x.x, st, s.x, t.x),
+                         ln_value(x.y, st, s.y, t.y),
+                         ln_value(x.z, st, s.z, t.z),
+                         ln_value(x.w, st, s.w, t.w));
+    };
     if constexpr (Q == kQDyn) {
       // the row's LN output in place of its depthwise output, its abs-max,
       // then the row quantized with its own scale
       float m = 0.0f;
-      for (int c = lane; c < C; c += 32) {
-        const float v = ln_value(d[c], st, p.lns[c], p.lnb[c]);
-        accf[r * as + c] = v;
-        m = fmaxf(m, fabsf(v));
+      for (int c = 4 * lane; c < C; c += 128) {
+        const float4 v = value4(c);
+        *reinterpret_cast<float4*>(d + c) = v;
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                           fmaxf(fabsf(v.z), fabsf(v.w))));
       }
       const float sc = row_scale(warp_max(m));
       int8_t* o = static_cast<int8_t*>(n) + (size_t)row * C;
-      for (int c = lane; c < C; c += 32) o[c] = quant_row(d[c], sc);
+      for (int c = 4 * lane; c < C; c += 128) {
+        const float4 v = *reinterpret_cast<const float4*>(d + c);
+        *reinterpret_cast<char4*>(o + c) =
+            make_char4(quant_row(v.x, sc), quant_row(v.y, sc),
+                       quant_row(v.z, sc), quant_row(v.w, sc));
+      }
       if (lane == 0) {
         nsc[row] = sc;
         if (amax != nullptr) amax[row] = 0;
       }
     } else if constexpr (Q == kQStatic) {
       int8_t* o = static_cast<int8_t*>(n) + (size_t)row * C;
-      for (int c = lane; c < C; c += 32)
-        o[c] = quant_scaled(ln_value(d[c], st, p.lns[c], p.lnb[c]), p.i1[c]);
+      for (int c = 4 * lane; c < C; c += 128) {
+        const float4 v = value4(c);
+        const float4 q = *reinterpret_cast<const float4*>(i1 + c);
+        *reinterpret_cast<char4*>(o + c) =
+            make_char4(quant_scaled(v.x, q.x), quant_scaled(v.y, q.y),
+                       quant_scaled(v.z, q.z), quant_scaled(v.w, q.w));
+      }
     } else {
       __nv_bfloat16* o = static_cast<__nv_bfloat16*>(n) + (size_t)row * C;
-      for (int c = lane; c < C; c += 32)
-        o[c] = __float2bfloat16_rn(ln_value(d[c], st, p.lns[c], p.lnb[c]));
+      for (int c = 4 * lane; c < C; c += 128) {
+        const float4 v = value4(c);
+        __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                               __floats2bfloat162_rn(v.z, v.w)};
+        *reinterpret_cast<uint2*>(o + c) = *reinterpret_cast<uint2*>(h);
+      }
     }
     if (keys != nullptr && lane == 0) keys[row] = 0ull;
   }
@@ -243,17 +296,22 @@ struct DownDyn {
 };
 
 template <typename T, bool DWBF>
-cudaError_t prologue_as(const BlockParams& p, void* n, float* nsc,
+cudaError_t prologue_as(const BlockParams& p, DwPlan pl, void* n, float* nsc,
                         int* amax, unsigned long long* keys, int mode,
                         cudaStream_t st) {
-  const int total = p.B * p.H * p.W;
-  const dim3 grid((total + kTM - 1) / kTM);
-  const int smem = kTM * (p.C + 8) * 4;
+  pl = dw_prologue_plan(pl, p.H, p.W, p.C, sizeof(T), DWBF);
+  if (pl.tr == 0) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t err =
+      make_plane_map(&map, p.x, p.B, p.H, p.W, p.C, sizeof(T), pl);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * ((p.H + pl.tr - 1) / pl.tr));
+  const int smem = (int)dw_prologue_smem(pl, p.W, p.C, sizeof(T));
   auto go = [&](auto kernel) -> cudaError_t {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, st>>>(p, n, nsc, amax, keys);
+    kernel<<<grid, kThreads, smem, st>>>(map, p, pl, n, nsc, amax, keys);
     return cudaGetLastError();
   };
   switch (mode) {
@@ -264,15 +322,18 @@ cudaError_t prologue_as(const BlockParams& p, void* n, float* nsc,
   }
 }
 
-cudaError_t prologue(const BlockParams& p, void* n, float* nsc, int* amax,
-                     unsigned long long* keys, int dw_bf16, int x_bf16,
-                     int mode, cudaStream_t st) {
+cudaError_t prologue(const BlockParams& p, const DwPlan& pl, void* n,
+                     float* nsc, int* amax, unsigned long long* keys,
+                     int dw_bf16, int x_bf16, int mode, cudaStream_t st) {
   using BF = __nv_bfloat16;
   if (dw_bf16)
-    return x_bf16 ? prologue_as<BF, true>(p, n, nsc, amax, keys, mode, st)
-                  : prologue_as<float, true>(p, n, nsc, amax, keys, mode, st);
-  return x_bf16 ? prologue_as<BF, false>(p, n, nsc, amax, keys, mode, st)
-                : prologue_as<float, false>(p, n, nsc, amax, keys, mode, st);
+    return x_bf16
+               ? prologue_as<BF, true>(p, pl, n, nsc, amax, keys, mode, st)
+               : prologue_as<float, true>(p, pl, n, nsc, amax, keys, mode,
+                                          st);
+  return x_bf16
+             ? prologue_as<BF, false>(p, pl, n, nsc, amax, keys, mode, st)
+             : prologue_as<float, false>(p, pl, n, nsc, amax, keys, mode, st);
 }
 
 // The dynamic mode's GEMM 1 passes (``passes``): bit 0 the scan, bit 1 the
@@ -353,8 +414,8 @@ extern "C" int cpt_fused_block(
   float* nsc = rs;
   int* amax = rs ? reinterpret_cast<int*>(rs + R) : nullptr;
   float* asc = rs ? rs + 2 * R : nullptr;
-  cudaError_t err =
-      cpt::prologue(p, n, nsc, amax, nullptr, dw_bf16, x_bf16, mode, st);
+  cudaError_t err = cpt::prologue(p, cpt::DwPlan{0, 0, 0}, n, nsc,
+                                  amax, nullptr, dw_bf16, x_bf16, mode, st);
   if (err == cudaSuccess)
     err = cpt::up(n, w1, s1, b1, i2, h, nsc, amax, asc, mode,
                   cpt::kScan | cpt::kQuantize, R, C, 0, st);
@@ -370,19 +431,23 @@ extern "C" int cpt_fused_block(
 // argmax keys; ``passes`` picks GEMM 1's scan pass (1, into
 // ``amax``), quantize pass (2, from ``amax``, writes ``asc`` [R]) or both
 // (3); GEMM 2 reads ``asc``. ``tile`` (int8 GEMMs): 0 the chosen tile, 1-5
-// the candidates.
+// the candidates. The prologue's halo tile (block.cuh: DwPlan): tr = 0 the
+// chosen plan, else the plan (tr, cs) (its row pieces: block.cuh,
+// dw_prologue_plan).
 extern "C" int cpt_block_prologue(const void* x, void* n, float* nsc,
                                   int* amax, unsigned long long* keys,
                                   int dw_bf16, int x_bf16,
                                   int mode, int B, int H, int W, int C,
                                   const float* dwk, const float* dwb,
                                   const float* lns, const float* lnb,
-                                  const float* i1, float eps, void* stream) {
+                                  const float* i1, float eps, int tr, int cs,
+                                  void* stream) {
   if (C % 32 != 0 || B * H * W <= 0) return (int)cudaErrorInvalidValue;
   const cpt::BlockParams p = cpt::make_block_params(
       x, B, H, W, C, dwk, dwb, lns, lnb, nullptr, nullptr, nullptr, i1,
       nullptr, nullptr, nullptr, nullptr, nullptr, eps);
-  return (int)cpt::prologue(p, n, nsc, amax, keys, dw_bf16, x_bf16, mode,
+  return (int)cpt::prologue(p, cpt::DwPlan{tr, cs, 0}, n, nsc,
+                            amax, keys, dw_bf16, x_bf16, mode,
                             static_cast<cudaStream_t>(stream));
 }
 

@@ -45,7 +45,7 @@ extern "C" int cpt_block_prologue(const void* x, void* n, float* nsc,
                                   int H, int W, int C, const float* dwk,
                                   const float* dwb, const float* lns,
                                   const float* lnb, const float* i1,
-                                  float eps, void* stream);
+                                  float eps, int tr, int cs, void* stream);
 extern "C" int cpt_block_up(const void* n, const void* w1, const float* s1,
                             const float* b1, const float* i2, void* h,
                             const float* nsc, int* amax, float* asc,
@@ -278,7 +278,7 @@ extern "C" int cpt_fused_block_gumbel_counts(
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = cpt_block_prologue(x, n, nullptr, nullptr, keys, 0, x_bf16, mode,
-                               B, H, W, C, dwk, dwb, lns, lnb, i1, eps,
+                               B, H, W, C, dwk, dwb, lns, lnb, i1, eps, 0, 0,
                                stream);
   if (err == 0)
     err = cpt_block_up(n, w1, s1, b1, i2, h, nullptr, nullptr, nullptr, mode,

@@ -5,8 +5,10 @@
 
 Port of count_pipnet_tpu/ops/pallas/fused_block.py (``fused_block_apply``
 and ``fused_block_apply_padded``; the TPU's padded-plane layout is not
-carried: the CUDA kernel reads compact NHWC planes and handles the 3-pixel
-halo with bounds checks). Three GEMM modes, as on the TPU:
+carried: the CUDA kernel reads compact NHWC planes and copies each strip
+of image rows with its 3-pixel halo into shared memory as TMA boxes that
+read zeros outside the image, as K7 does). Three GEMM modes, as on the
+TPU:
 
 * bf16: the LN and GELU outputs are cast to bf16, products accumulate in f32;
 * int8-static: calibrated per-channel activation maxima are folded into
@@ -343,15 +345,16 @@ def fused_block(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
     return out
 
 
-def block_prologue(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
+def block_prologue(x, pb, eps: float = 1e-6, dw_bf16: bool = False,
+                   tile=None):
     """Kernel A's stage a alone (CUDA), or :func:`block_prologue_plain`
-    (CPU)."""
+    (CPU). ``tile``: a halo tile (tr, cs) in place of the
+    chosen one (ops/cuda/block.cuh: ``DwPlan``; the tile sweep,
+    scripts/dw_tiles.py); every tile computes the same bits."""
     if x.device.type == "cpu":
         return block_prologue_plain(x, pb, eps, dw_bf16)
     check_block_inputs(x, pb)
-    if dw_bf16 and x.data_ptr() % 8:
-        raise ValueError("block_prologue(dw_bf16=True) loads channel pairs: "
-                         "the plane must start 8-byte aligned")
+    _aligned(x, "block_prologue: the plane")  # the TMA's plane
     b, h, w, c = x.shape
     n = torch.empty(x.shape, dtype=_operand_dtype(pb), device=x.device)
     nsc = torch.empty(b, h, w, 1, dtype=torch.float32, device=x.device) \
@@ -361,7 +364,7 @@ def block_prologue(x, pb, eps: float = 1e-6, dw_bf16: bool = False):
         x.data_ptr(), n.data_ptr(), p(nsc), None, None, int(dw_bf16),
         int(x.dtype == torch.bfloat16), _mode(pb), b, h, w, c, p(pb["dwk"]),
         p(pb["dwb"]), p(pb["lns"]), p(pb["lnb"]), p(pb["i1"]), float(eps),
-        _cuda.stream_ptr(x.device))
+        *(tile or (0, 0)), _cuda.stream_ptr(x.device))
     _cuda.check(code, "block_prologue")
     return (n, nsc) if pb["dynamic"] else n
 

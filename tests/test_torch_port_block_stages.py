@@ -130,9 +130,12 @@ def test_stage_composition_equals_one_piece(c, mode, taps, plane):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("c", [32, 64])
-def test_stage_composition_matches_jax(c, mode):
-    h, w = 9, 9
+@pytest.mark.parametrize("c, hw", [(32, (9, 9)), (64, (9, 9)), (96, (5, 3))],
+                         ids=["32", "64", "96-5x3"])
+def test_stage_composition_matches_jax(c, hw, mode):
+    """At 5x3 (H and W below 7, odd) kernel A's prologue owns whole image
+    rows of a plane narrower than its halo."""
+    h, w = hw
     _, jp, x4, scales, pb = _case(c, mode, hw=(h, w), seed=3)
     int8 = mode != "bf16"
     x = torch.from_numpy(x4)

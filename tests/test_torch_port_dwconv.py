@@ -2,8 +2,11 @@
 dwconv_bwd.py): their plain versions against the JAX package's Pallas
 kernels (interpret mode) and its XLA conv, and the two autograd Functions
 against ``jax.vjp`` of the JAX package's ``_dw_conv``. Ragged planes
-(9x9, 14x13, 6x11), 8 to 64 channels, inputs from numpy seeds. The port
-takes the torch weight layout [C, 1, 7, 7], JAX the flax [7, 7, 1, C]."""
+(9x9, 14x13, 6x11), 8 to 64 channels, and the planes a halo tile gets
+wrong most easily (H or W below 7, a single column, a single image, 24 and
+96 channels: chip_smoke.py holds K7 against its plain version on the card
+at the same kinds of plane), inputs from numpy seeds. The port takes the
+torch weight layout [C, 1, 7, 7], JAX the flax [7, 7, 1, C]."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +24,8 @@ from count_pipnet_tpu_torch.ops.dwconv_bwd import (dwconv7_ad,
                                                    dwconv7_wgrad,
                                                    dwconv7_wgrad_plain)
 
-SHAPES = [(2, 9, 9, 8), (2, 14, 13, 32), (1, 6, 11, 64)]
+SHAPES = [(2, 9, 9, 8), (2, 14, 13, 32), (1, 6, 11, 64), (1, 3, 5, 24),
+          (2, 9, 1, 96), (1, 5, 3, 96), (2, 14, 13, 40)]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
