@@ -139,8 +139,12 @@ _SIGNATURES = {
     # x, out, x_bf16, out_bf16, B, H, W, C, w, bias, the halo tile (tr,
     # cs, segs), stream
     "cpt_dwconv7": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P],
-    # x, g, bf16, B, H, W, C, seg, chunks, part, out, stream
-    "cpt_dwconv7_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # K8's plan: B, H, W, C, elt, SMs, plan (int [6], in and out)
+    "cpt_dwconv7_wgrad_plan": [_I, _I, _I, _I, _I, _I, _IP],
+    # x, g, bf16, B, H, W, C, the plan (tr, cs, segs, bufs, ctas), part,
+    # out, stream
+    "cpt_dwconv7_wgrad": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P],
     # x, x_bf16, w, bias, xhi, xlo, stats, logits, part (scratch), counts,
     # B, HW, C, Pp, stream
     "cpt_fused_count_head": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

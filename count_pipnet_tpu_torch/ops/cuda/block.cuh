@@ -5,15 +5,15 @@
 //
 // - the depthwise 7x7 as a shared-memory halo tile (DwPlan,
 //   make_plane_map, dw_tile_fill, dw7_tile_run, dw_tile_slab), which K7
-//   (dwconv.cu) and kernel A's prologue (fused_block.cu, block_dw_tile)
-//   use: a CTA copies a rectangle of the NHWC plane, whole image rows with
+//   (dwconv.cu), kernel A's prologue (fused_block.cu, block_dw_tile) and
+//   K8 use: a CTA copies a rectangle of the NHWC plane, whole image rows with
 //   their 3-pixel halo and one slab of channels, into shared memory as one
 //   TMA box (the TMA writes zeros past the plane: SAME padding), then every
 //   output of the rectangle is computed from shared memory with no bounds
 //   check, by a 7x7 window that slides along the row in registers (7
-//   shared loads a pixel);
-// - the per-output arithmetic, pinned (dw7_dot), and the older window walk
-//   over global memory (dw7_walk), which K8 (dwconv_wgrad.cu) alone uses;
+//   shared loads a pixel); K8 (dwconv_wgrad.cu) walks the same tile with
+//   the same window (dw7_tile_run), summing window times cotangent;
+// - the per-output arithmetic, pinned (dw7_dot);
 // - the arithmetic of each step as __device__ functions with their
 //   floating-point contraction pinned (ln_stats, ln_value, quant_scaled,
 //   up_static, up_dyn, block_out), so that every launch that computes a
@@ -131,62 +131,6 @@ __device__ __forceinline__ WT load_tap(const T* p) {
   }
 }
 
-// K8's window walk (dwconv_wgrad.cu; K7 and kernel A's prologue take the
-// halo tile below): the depthwise 7x7 (stride 1, pad 3) window of one
-// channel ``c`` over a run of ``n`` consecutive pixels of the flattened
-// [B*H*W, C] plane in global memory, from pixel ``start`` on, walked in
-// order with the 7x7 input window in registers: along an image row the
-// window slides one column, so a pixel costs 7 loads, not 49.
-// ``visit(i, win)`` is called for each pixel start + i below ``total`` with
-// win[dy][dx] = x[y + dy - 3, x + dx - 3] in f32 (0 outside the image: the
-// halo by bounds checks), ``skip(i)`` for each pixel past it.
-template <typename T, typename Visit, typename Skip>
-__device__ __forceinline__ void dw7_walk(const T* x, int H, int W, int C,
-                                         int c, int start, int n, int total,
-                                         Visit visit, Skip skip) {
-  const int HW = H * W;
-  int b = start / HW, y = (start - b * HW) / W;
-  int xq = start - b * HW - y * W;
-  float win[7][7];
-  bool slide = false;  // window holds the previous pixel of this row
-  for (int i = 0; i < n; ++i) {
-    if (start + i < total) {
-      const T* xb = x + (size_t)b * HW * C + c;
-      auto ld = [&](int yy, int xx) -> float {
-        return (yy < 0 || yy >= H || xx < 0 || xx >= W)
-                   ? 0.0f
-                   : to_f32(xb[(size_t)(yy * W + xx) * C]);
-      };
-      if (slide) {
-#pragma unroll
-        for (int dy = 0; dy < 7; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 6; ++dx) win[dy][dx] = win[dy][dx + 1];
-          win[dy][6] = ld(y + dy - 3, xq + 3);
-        }
-      } else {
-#pragma unroll
-        for (int dy = 0; dy < 7; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 7; ++dx)
-            win[dy][dx] = ld(y + dy - 3, xq + dx - 3);
-      }
-      visit(i, win);
-    } else {
-      skip(i);
-    }
-    // next pixel
-    slide = xq + 1 < W;
-    if (++xq == W) {
-      xq = 0;
-      if (++y == H) {
-        y = 0;
-        ++b;
-      }
-    }
-  }
-}
-
 // bias + the 49 taps of one window, summed by columns (the order kernel A
 // has always used: its readings do not move with the sharing); each column
 // as fused multiply-adds in dy order, pinned so that every kernel that
@@ -229,8 +173,10 @@ __device__ __forceinline__ float2 dw7_dot(const __nv_bfloat162 (&win)[7][7],
   return d;
 }
 
-// The depthwise 7x7 as a shared-memory halo tile, K7's (dwconv.cu) and
-// kernel A's prologue's (block_dw_tile, fused_block.cu). A CTA owns ``tr``
+// The depthwise 7x7 as a shared-memory halo tile, K7's (dwconv.cu), kernel
+// A's prologue's (block_dw_tile, fused_block.cu) and K8's (dwconv_wgrad.cu,
+// which walks it persistently, with a second box of the cotangent and
+// sums in place of taps). A CTA owns ``tr``
 // whole rows of one image (fewer in the image's last strip) and walks the
 // channels in slabs of ``cs``: for each slab it copies the (tr + 6) x
 // (W + 6) x cs rectangle of the plane around its rows into shared memory,
@@ -241,8 +187,8 @@ __device__ __forceinline__ float2 dw7_dot(const __nv_bfloat162 (&win)[7][7],
 // channel pair for bf16 taps), neighbouring threads on neighbouring units
 // (conflict-free shared loads), and the rows into ``segs`` pieces a row;
 // thread (unit, j) walks pieces j, j + runs, ... with the taps in
-// registers. One slab buffer: a second, copying slab s + 1 while slab s was
-// summed, was never more than 2 % faster (H100).
+// registers. One slab buffer in K7 and the prologue: a second, copying slab
+// s + 1 while slab s was summed, was never more than 2 % faster (H100).
 struct DwPlan {
   int tr;    // image rows a CTA
   int cs;    // channels a slab: 32, 64, 128 or 256
@@ -271,22 +217,23 @@ __host__ __device__ inline int dw_box_bytes(const DwPlan& pl, int W,
 // The box's size is the map's: the last strip of an image copies tr + 6
 // rows too (its rows past H are zeros). TMA needs a 16-byte aligned plane
 // and row strides (C * elt % 16 == 0) and at most 256 in each box
-// dimension.
+// dimension. ``halo`` 0: the box [1, tr, W, cs] of the rows alone (K8's
+// cotangent).
 inline cudaError_t make_plane_map(CUtensorMap* map, const void* x, int B,
                                   int H, int W, int C, int elt,
-                                  const DwPlan& pl) {
+                                  const DwPlan& pl, int halo = 3) {
   const sm90::EncodeTiledFn enc = sm90::encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   if ((reinterpret_cast<uintptr_t>(x) & 15) || (C * elt) % 16 ||
-      W + 6 > 256 || pl.tr + 6 > 256 || pl.cs > 256)
+      W + 2 * halo > 256 || pl.tr + 2 * halo > 256 || pl.cs > 256)
     return cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C * elt,
                                  (cuuint64_t)W * C * elt,
                                  (cuuint64_t)H * W * C * elt};
-  const cuuint32_t box[4] = {(cuuint32_t)pl.cs, (cuuint32_t)W + 6,
-                             (cuuint32_t)pl.tr + 6, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)pl.cs, (cuuint32_t)(W + 2 * halo),
+                             (cuuint32_t)(pl.tr + 2 * halo), 1};
   const cuuint32_t steps[4] = {1, 1, 1, 1};
   const CUresult r = enc(
       map,
@@ -298,6 +245,20 @@ inline cudaError_t make_plane_map(CUtensorMap* map, const void* x, int B,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The box of ``map`` at (image b, row y, column xx, channel c0) into
+// ``dst`` (128-byte aligned), counted by ``bar``; one thread calls it.
+__device__ __forceinline__ void dw_box_copy(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int b, int y,
+                                            int xx, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          sm90::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90::smem_addr(bar)),
+      "r"(c0), "r"(xx), "r"(y), "r"(b)
+      : "memory");
+}
+
 // Thread 0 issues the copy of the slab from channel c0 of the strip from
 // (b, y0) into ``tile`` (128-byte aligned), counted by ``bar``; the
 // threads then wait on ``bar`` (sm90::mbar_wait).
@@ -306,13 +267,7 @@ __device__ __forceinline__ void dw_tile_fill(void* tile, const CUtensorMap* map,
                                              int y0, int c0) {
   if (threadIdx.x == 0) {
     sm90::mbar_expect_tx(bar, bytes);
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
-            sm90::smem_addr(tile)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(sm90::smem_addr(bar)),
-        "r"(c0), "r"(-3), "r"(y0 - 3), "r"(b)
-        : "memory");
+    dw_box_copy(tile, map, bar, b, y0 - 3, -3, c0);
   }
 }
 

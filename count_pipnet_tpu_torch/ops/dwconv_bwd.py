@@ -7,7 +7,8 @@ Port of count_pipnet_tpu/ops/pallas/dwconv_bwd.py:
   ops/cuda/dwconv_wgrad.cu): from the conv input ``x`` and the output's
   cotangent ``g`` (both [B, H, W, C]),
   ``dK[c, ky, kx] = sum_{b,y,x} x[b, y+ky-3, x+kx-3, c] * g[b, y, x, c]``
-  and ``db = sum g``, in f32, as ([C, 1, 7, 7], [C]);
+  and ``db = sum g``, in f32, as ([C, 1, 7, 7], [C]); :func:`wgrad_plan`
+  says which halo tile a launch of K8 takes;
 * :func:`dwconv7_ad` (``dwconv7_ad``): the conv forward and its data
   gradient (the conv of ``g`` with the flipped kernel) through PyTorch's
   conv, the weight gradient through K8; the ``--fused_whole_blocks``
@@ -22,17 +23,18 @@ and g are rounded to ``dtype`` before K8's f32 sums; the plain version
 sums whatever it is given, so the caller rounds for both alike.
 """
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from . import cuda as _cuda
 from .dwconv import K, PAD, check_plane, dwconv7
 
-__all__ = ["dwconv7_wgrad", "dwconv7_wgrad_plain", "dw_conv",
+__all__ = ["dwconv7_wgrad", "dwconv7_wgrad_plain", "wgrad_plan", "dw_conv",
            "dwconv7_ad", "dwconv7_pfwd_ad", "Dwconv7Ad", "Dwconv7PfwdAd"]
 
 _ROWS = K * K + 1   # 49 taps + the bias row
-_SEG = 256          # pixels each warp of K8 walks
 
 
 def dw_conv(x, weight, bias, dtype):
@@ -58,10 +60,31 @@ def dwconv7_wgrad_plain(x, g):
     return dk, g32.sum(dim=(0, 1, 2))
 
 
-def dwconv7_wgrad(x, g):
+def wgrad_plan(b, h, w, c, elt, tile=None, device=None):
+    """The plan that a launch of K8 on [b, h, w, c] planes of ``elt``-byte
+    values takes (ops/cuda/dwconv_wgrad.cu: ``WgPlan``), as (tr, cs, segs,
+    bufs, ctas, shared memory bytes): image rows a strip, channels a slab,
+    pieces a row, tile buffers a CTA, CTAs a slab. ``tile`` (tr, cs, segs,
+    bufs, ctas), in part or whole, in place of the chosen one (tr 0: the
+    chosen tile; ctas 0: enough CTAs to fill the card). Raises where no
+    tile fits. Needs the kernel library and a CUDA card (its SM count)."""
+    req = tuple(tile or ())
+    plan = (ctypes.c_int * 6)(*req, *(0,) * (6 - len(req)))
+    sms = torch.cuda.get_device_properties(
+        device or torch.cuda.current_device()).multi_processor_count
+    _cuda.library().cpt_dwconv7_wgrad_plan(b, h, w, c, elt, sms, plan)
+    if plan[0] == 0:
+        raise ValueError(f"no K8 tile {tile} fits {b}x{h}x{w}x{c} planes "
+                         f"of {elt}-byte values")
+    return tuple(plan)
+
+
+def dwconv7_wgrad(x, g, *, tile=None):
     """dK [C, 1, 7, 7] and db [C] (f32) of a depthwise 7x7 with input ``x``
     and output cotangent ``g``, [B, H, W, C] each, both f32 or both bf16.
-    CUDA tensor: K8; CPU tensor: the plain version."""
+    CUDA tensor: K8; CPU tensor: the plain version. ``tile``: a plan
+    (tr, cs, segs, bufs, ctas) in place of the chosen one (the tile sweep,
+    scripts/dw_tiles.py); each plan sums in its own order."""
     if x.device.type == "cpu":
         return dwconv7_wgrad_plain(x, g)
     if x.device.type != "cuda":
@@ -72,14 +95,22 @@ def dwconv7_wgrad(x, g):
                          f"not match x {tuple(x.shape)} {x.dtype} on "
                          f"{x.device}")
     b, h, w, c = x.shape
-    chunks = max(1, -(-b * h * w // (8 * _SEG)))
+    elt = x.element_size()
+    if c * elt % 16 or w > 250:
+        raise ValueError(f"dwconv7_wgrad copies the planes as TMA boxes: C "
+                         f"times the element size must be a multiple of 16 "
+                         f"bytes and W at most 250, got C={c} of {elt} "
+                         f"bytes, W={w}")
     xc, gc = x.detach().contiguous(), g.detach().contiguous()
-    part = torch.empty(chunks, _ROWS, c, dtype=torch.float32,
-                       device=x.device)
+    if xc.data_ptr() % 16 or gc.data_ptr() % 16:
+        raise ValueError("dwconv7_wgrad: the planes must start on a 16-byte "
+                         "boundary")
+    tr, cs, segs, bufs, ctas, _ = wgrad_plan(b, h, w, c, elt, tile, x.device)
+    part = torch.empty(ctas, _ROWS, c, dtype=torch.float32, device=x.device)
     out = torch.empty(_ROWS, c, dtype=torch.float32, device=x.device)
     code = _cuda.library().cpt_dwconv7_wgrad(
         xc.data_ptr(), gc.data_ptr(), int(x.dtype == torch.bfloat16), b, h,
-        w, c, _SEG, chunks, part.data_ptr(), out.data_ptr(),
+        w, c, tr, cs, segs, bufs, ctas, part.data_ptr(), out.data_ptr(),
         _cuda.stream_ptr(x.device))
     _cuda.check(code, "dwconv7_wgrad")
     _cuda.count_launch("dwconv7_wgrad", c)

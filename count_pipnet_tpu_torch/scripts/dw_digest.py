@@ -5,18 +5,26 @@ stage geometries of convnext_tiny_26 and an odd 5x3 plane; kernel A's
 prologue (ops/fused_block.py:block_prologue) in its bf16, int8-static and
 dynamic int8 modes with f32 and bf16 taps, on bf16 and f32 planes; kernel
 C's counts (ops/gumbel_head.py:fused_block_gumbel_counts) in its bf16 and
-int8-static modes. Inputs and weights come from fixed numpy seeds. It uses
-only the public wrappers, so it also runs an older checkout of the
-package: run it by its path with ``PYTHONPATH`` set to that checkout.
+int8-static modes; and K8 (ops/dwconv_bwd.py:dwconv7_wgrad) on f32 and
+bf16 planes at the same geometries. Inputs and weights come from fixed
+numpy seeds. It uses only the public wrappers, so it also runs an older
+checkout of the package: run it by its path with ``PYTHONPATH`` set to
+that checkout.
 
     python3 count_pipnet_tpu_torch/scripts/dw_digest.py [--times]
 
 Prints one ``digest ...`` line per output (sha256 of its bytes, first 16
-hex digits) and an ``all`` line over every output. ``--times`` then times,
-through the same wrappers (CUDA events, 10 calls after 2, bf16 planes),
-K7 at 128 images of each stage geometry beside ``F.conv2d(groups=C)`` and
-the prologue at 32 and 256 images in each mode and tap type, one ``time
-...`` line each, so that one call can time two checkouts alike.
+hex digits) and an ``all`` line over every output but K8's. K8's lines
+and their own ``digest K8 all`` line follow: K8's sums run in the order
+its plan fixes, so a checkout with another K8 design prints other bits,
+and only two runs of one checkout are expected to agree. ``--times`` then
+times, through the same wrappers (CUDA events, 10 calls after 2), K7 at
+128 images of each stage geometry (bf16 planes) beside
+``F.conv2d(groups=C)``, K8 at 128 images of each geometry on f32 and bf16
+planes beside ``aten.convolution_backward`` (its weight and bias
+gradients), and the prologue at 32 and 256 images (bf16 planes) in each
+mode and tap type, one ``time ...`` line each, so that one call can time
+two checkouts alike.
 """
 
 import argparse
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from count_pipnet_tpu_torch.ops.dwconv import dwconv7
+from count_pipnet_tpu_torch.ops.dwconv_bwd import dwconv7_wgrad
 from count_pipnet_tpu_torch.ops.fused_block import (block_prologue,
                                                     prepare_block)
 from count_pipnet_tpu_torch.ops.gumbel_head import fused_block_gumbel_counts
@@ -92,7 +101,20 @@ def times(card):
         lms = cuda_ms(lambda: F.conv2d(xl, wl, bl, padding=3, groups=c))
         print(f"time K7 [128, {h}, {w}, {c}] bf16: kernel {ms:.4f} ms, "
               f"F.conv2d {lms:.4f} ms ({card})", flush=True)
-        del x, xl
+        g = torch.from_numpy(rng.normal(size=(128, h, w, c))
+                             .astype(np.float32)).cuda()
+        for dt in (torch.float32, bf16):
+            xd, gd = x.to(dt), g.to(dt)
+            xl, gl = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2)
+            wl = wt.to(dt)
+            ms = cuda_ms(lambda: dwconv7_wgrad(xd, gd))
+            lms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                gl, xl, wl, [c], [1, 1], [3, 3], [1, 1], False, [0, 0], c,
+                [False, True, True]))
+            print(f"time K8 [128, {h}, {w}, {c}] {str(dt)[6:]}: kernel "
+                  f"{ms:.4f} ms, convolution_backward {lms:.4f} ms ({card})",
+                  flush=True)
+        del x, xl, g, xd, gd, gl
     for (h, w, c) in GEOMETRIES:
         for images in (32, 256):
             x = torch.from_numpy(np.random.default_rng(9).normal(
@@ -159,6 +181,21 @@ def main(argv=None):
             show(f"kernel C {mode} 8x{h}x{w}x{c} bf16 planes, seed {seed}",
                  fused_block_gumbel_counts(x, pb, seed=seed))
     print(f"digest all: {every.hexdigest()[:16]} ({card})", flush=True)
+    k8 = hashlib.sha256()
+    for (h, w, c) in GEOMETRIES + (ODD,):
+        rng = np.random.default_rng(h * 1000 + c + 1)
+        x, g = (torch.from_numpy(rng.normal(size=(IMAGES, h, w, c))
+                                 .astype(np.float32)).cuda()
+                for _ in range(2))
+        for dt in (f32, bf16):
+            for name, t in zip(("dK", "db"),
+                               dwconv7_wgrad(x.to(dt), g.to(dt))):
+                d = digest(t)
+                k8.update(d.encode())
+                print(f"digest K8 {IMAGES}x{h}x{w}x{c} {str(dt)[6:]} planes "
+                      f"{name}: {d} (not expected to equal another K8 "
+                      f"design's bits)", flush=True)
+    print(f"digest K8 all: {k8.hexdigest()[:16]} ({card})", flush=True)
     if args.times:
         times(card)
 

@@ -4,8 +4,9 @@ kernels (interpret mode) and its XLA conv, and the two autograd Functions
 against ``jax.vjp`` of the JAX package's ``_dw_conv``. Ragged planes
 (9x9, 14x13, 6x11), 8 to 64 channels, and the planes a halo tile gets
 wrong most easily (H or W below 7, a single column, a single image, 24 and
-96 channels: chip_smoke.py holds K7 against its plain version on the card
-at the same kinds of plane), inputs from numpy seeds. The port takes the
+96 channels: chip_smoke.py holds K7 and K8 against their plain versions on
+the card at the same kinds of plane; K8 also on planes its strips of four
+rows split unevenly, and on bf16 planes), inputs from numpy seeds. The port takes the
 torch weight layout [C, 1, 7, 7], JAX the flax [7, 7, 1, C]."""
 
 import jax
@@ -26,6 +27,9 @@ from count_pipnet_tpu_torch.ops.dwconv_bwd import (dwconv7_ad,
 
 SHAPES = [(2, 9, 9, 8), (2, 14, 13, 32), (1, 6, 11, 64), (1, 3, 5, 24),
           (2, 9, 1, 96), (1, 5, 3, 96), (2, 14, 13, 40)]
+# planes K8's halo tile splits unevenly: strips of four rows over 27 (an odd
+# last strip) and 26 rows, channels past the last whole slab (40)
+WGRAD_SHAPES = SHAPES + [(2, 27, 27, 40), (1, 26, 26, 64)]
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -88,7 +92,7 @@ def test_dwconv7_plain_matches_pallas_and_xla(shape, dt):
     assert wide.dtype == torch.float32
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
 def test_wgrad_plain_matches_pallas_interpret(shape):
     """dK and db against the Pallas kernel in f32: rtol/atol 1e-4."""
     x, _, _, g = _setup(shape, seed=shape[-1] + 1)
@@ -102,6 +106,38 @@ def test_wgrad_plain_matches_pallas_interpret(shape):
     np.testing.assert_allclose(db.numpy(), _f32(db_j), rtol=1e-4,
                                atol=1e-4)
     via = dwconv7_wgrad(torch.from_numpy(x), torch.from_numpy(g))
+    for a, b in zip(via, (dk, db)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _round_bf16(a):
+    """f32 -> the nearest bf16 value (ties to even), kept in f32."""
+    u = a.astype(np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 13, 40), (1, 3, 5, 24),
+                                   (2, 27, 27, 40), (1, 26, 26, 64)])
+def test_wgrad_plain_matches_pallas_interpret_bf16(shape):
+    """bf16 planes (x and g rounded to bf16 with numpy): the plain sums
+    against the Pallas kernel on the same bf16 arrays, rtol/atol 1e-4 (both
+    sum the bf16 values in f32)."""
+    x, _, _, g = _setup(shape, seed=shape[-1] + 2)
+    x, g = _round_bf16(x), _round_bf16(g)
+    xt, gt = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, g))
+    dk, db = dwconv7_wgrad_plain(xt, gt)
+    dk_j, db_j = j_dwconv7_wgrad(jnp.asarray(x, jnp.bfloat16),
+                                 jnp.asarray(g, jnp.bfloat16),
+                                 interpret=True)
+    assert dk.dtype == torch.float32 and db.dtype == torch.float32
+    np.testing.assert_allclose(dk.numpy(),
+                               _f32(dk_j).transpose(3, 2, 0, 1),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), _f32(db_j), rtol=1e-4,
+                               atol=1e-4)
+    via = dwconv7_wgrad(xt, gt)
     for a, b in zip(via, (dk, db)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
