@@ -87,8 +87,12 @@ _SIGNATURES = {
                        _P],
     # the GEMM core's s8 mode: a, b, d (s32), M, N, K, stream
     "cpt_sm90_gemm_s8": [_P, _P, _P, _I, _I, _I, _P],
-    # logits, x_bf16, noise, counts, B, HW, C, seed, stream
-    "cpt_gumbel_hard_counts": [_P, _I, _P, _P, _I, _I, _I, _U64, _P],
+    # logits, x_bf16, noise, counts, B, HW, C, seed, plan, plan taken (int,
+    # out, or null), stream
+    "cpt_gumbel_hard_counts": [_P, _I, _P, _P, _I, _I, _I, _U64, _I, _IP,
+                               _P],
+    # mismatches (u64, zeroed), stream
+    "cpt_gumbel_log_mismatches": [_P, _P],
     # x, x_bf16, mode, B, H, W, C, ..., noise, counts, seed, n (scratch),
     # h (scratch), keys (scratch), stream
     "cpt_fused_block_gumbel_counts": [_P] + _BLOCK_ARGS + [_P, _P, _U64, _P,

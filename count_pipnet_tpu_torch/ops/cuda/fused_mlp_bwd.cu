@@ -317,13 +317,6 @@ cudaError_t sum_rows(const float* part, float* out, int S, int n,
   return cudaGetLastError();
 }
 
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-}
-
 // The row kernels' grid: as many CTAs as fit on the card at once, at most
 // one for each kRowWarps rows. The partial rows, and so the order of the
 // column sums, depend on it: the same card repeats bit for bit.

@@ -3,10 +3,36 @@
 //
 // B replaces count_pipnet_tpu/ops/pallas/gumbel_head.py:gumbel_hard_counts
 // (:88). Per patch row: f32 logits + Gumbel(0, 1) noise, argmax over the P
-// channels (ties to the lowest index), one count for the winner. It reads
-// the [B, H*W, P] logits once and is bound by that read; a CTA owns kRows
-// rows of one image and keeps its histogram in shared memory, so global
-// memory sees at most P atomics per CTA.
+// channels by jnp.argmax's rule (the first NaN, else the first maximum),
+// one count for the winner. Its bound is instruction dispatch, not bytes:
+// the noise contract below costs each logit a quarter of a Philox4x32-10
+// block (ten rounds of two 32x32->64 multiplies and two three-way XORs), a
+// u32->f32 convert and two accurate logs of a positive normal, 17
+// instructions each (common.cuh: log_normal, logf bit for bit without the
+// tests for inputs the draw never makes): 50 instructions as the SASS
+// spells them, against 2 or 4 bytes read (PERF.md, K4's bound;
+// chip_smoke.py: K4_INSTRUCTIONS). So the design is about lanes,
+// independent work a thread and dispatch slots; no tensor core and no TMA
+// has anything to do here (the read is one coalesced pass, 8 or 16 bytes
+// a quad):
+// - a row's P / 4 channel quads go to a group of G lanes, the fewest
+//   (a power of two up to 32) that hold them one each: a warp takes 8 rows
+//   at P = 16, 2 at P = 64, and one row at P >= 128, with P / 128 quads a
+//   lane at P = 256 and 768 (head_lg);
+// - a thread holds S rows at once, so it runs S Philox chains
+//   interleaved; it starts their logits loads (and the injected noise's)
+//   before the chains, so the read flies under the arithmetic
+//   (quad_argmax). The rule head_plan takes four rows a thread at three
+//   CTAs an SM on large planes (kWide), else one quad a thread (kSingle);
+// - a thread keeps a running argmax (first_max) over its channels, which
+//   ascend; the lane group reduces the rows' argmax keys (common.cuh:
+//   argmax_key) with __reduce_max_sync on the high word, then the low
+//   word, so B and C pick winners by one rule, and a key only ever names
+//   a channel of the row;
+// - a CTA takes 8 S 32 / G rows of one image, and the grid is as many
+//   CTAs as the rows need; the histogram is a u32 array in shared memory,
+//   flushed with one global atomicAdd a nonzero bin (exact integers in
+//   f32).
 //
 // C replaces gumbel_head.py:fused_block_gumbel_counts (:268), in its bf16
 // and int8-static modes (f32 taps, as on the TPU). The TPU kernel keeps a
@@ -55,33 +81,143 @@ extern "C" int cpt_block_up(const void* n, const void* w1, const float* s1,
 namespace cpt {
 namespace {
 
-constexpr int kRows = 64;  // patch rows per CTA of the standalone head
+// Kernel B's two plans, the rule's only choices: kWide holds four rows a
+// thread at three CTAs an SM, kSingle one quad of one row a thread at four
+// (the CTAs an SM the registers are cut for by __launch_bounds__; neither
+// spills). A row takes G = 1 << lg lanes (head_lg), a warp 32 / G rows a
+// slot, a CTA 8 S 32 / G rows for S rows a thread.
+constexpr int kWide = 1, kSingle = 2;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gumbel_hist_kernel(const T* logits, const float* noise, float* counts,
-                       int HW, int C, uint2 key) {
-  extern __shared__ float hist[];  // [C]
-  const int img = blockIdx.y, p0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int c = threadIdx.x; c < C; c += kThreads) hist[c] = 0.0f;
+inline int head_lg(int C) {
+  int lg = 0;
+  while (lg < 5 && (1 << lg) < C / 4) ++lg;
+  return lg;
+}
+
+// The rule, from the device times of six candidate plans at P = 16, 64,
+// 256, 768 and 32 and 256 images of 26x26 (PERF.md, K4; H100): four rows
+// a thread where a row has 16 quads or more and the grid still has 8 CTAs
+// an SM (0.91-0.97 of the single plan's time at 256 images, P >= 64);
+// else one quad of one row a thread, the most threads (within 5 % of the
+// fastest candidate, or faster, elsewhere).
+inline int head_plan(int B, int HW, int C, int sms) {
+  const int rows = kThreads / 32 * 4 << (5 - head_lg(C));
+  return C / 4 >= 16 && (long)((HW + rows - 1) / rows) * B >= 8L * sms
+             ? kWide
+             : kSingle;
+}
+
+template <typename T, int S, bool NOISE>
+__device__ __forceinline__ void quad_argmax(const T* __restrict__ logits,
+                                            const float* __restrict__ noise,
+                                            int img, int HW, int C, int lg,
+                                            uint2 key, const int (&patch)[S],
+                                            int sub, float (&best)[S],
+                                            int (&best_c)[S]) {
+  const int G = 1 << lg, nq = C >> 2;
+  const T* row[S];
+  const float* nrow[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const size_t off = ((size_t)img * HW + patch[s]) * C;
+    row[s] = logits + off;
+    nrow[s] = NOISE ? noise + off : nullptr;
+  }
+  for (int q = sub; q < nq; q += G) {
+    float v[S][4], g[S][4];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      load4(row[s] + 4 * q, v[s]);
+      if constexpr (NOISE) load4(nrow[s] + 4 * q, g[s]);
+    }
+    if constexpr (!NOISE) {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        gumbel_quad((uint32_t)q, (uint32_t)patch[s], (uint32_t)img, key,
+                    g[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        first_max(best[s], best_c[s], __fadd_rn(v[s][k], g[s][k]),
+                  4 * q + k);
+  }
+}
+
+template <typename T, int S, int M>
+__global__ void __launch_bounds__(kThreads, M)
+    gumbel_hist_kernel(const T* __restrict__ logits,
+                       const float* __restrict__ noise, float* counts,
+                       int HW, int C, int lg, uint2 key) {
+  extern __shared__ unsigned int hist[];  // [C]
+  const int G = 1 << lg, nq = C >> 2;
+  const int img = blockIdx.y, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, sub = lane & (G - 1);
+  const int p0 = blockIdx.x * (kThreads / 32 * S << (5 - lg))
+                 + (warp * S << (5 - lg));
+  for (int c = threadIdx.x; c < C; c += kThreads) hist[c] = 0u;
   __syncthreads();
-  for (int r = warp; r < kRows; r += kThreads / 32) {
-    const int patch = p0 + r;
-    if (patch >= HW) break;
-    const size_t off = ((size_t)img * HW + patch) * C;
-    const T* row = logits + off;
-    const int win = noisy_argmax_row(
-        [&](int c) { return to_f32(row[c]); }, C,
-        noise ? noise + off : nullptr, key, (uint32_t)patch, (uint32_t)img,
-        lane);
-    if (lane == 0) atomicAdd(hist + win, 1.0f);
+  if (p0 < HW) {  // the warp has rows
+    int patch[S];
+    float best[S];
+    int best_c[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      // a row past the plane runs as the last row and counts nowhere
+      patch[s] = min(p0 + (s << (5 - lg)) + (lane >> lg), HW - 1);
+      best[s] = -INFINITY;  // a row of -inf keeps the lane's first channel
+      best_c[s] = 4 * sub;
+    }
+    if (noise != nullptr)
+      quad_argmax<T, S, true>(logits, noise, img, HW, C, lg, key, patch, sub,
+                              best, best_c);
+    else
+      quad_argmax<T, S, false>(logits, noise, img, HW, C, lg, key, patch,
+                               sub, best, best_c);
+    const unsigned group =
+        G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << (lane & ~(G - 1));
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      // lanes past the row's quads (P / 4 not a power of two) hold key 0,
+      // below every value's
+      const unsigned long long k =
+          sub < nq ? argmax_key(best[s], best_c[s]) : 0ull;
+      const unsigned hi = __reduce_max_sync(group, (unsigned)(k >> 32));
+      const unsigned lo = __reduce_max_sync(
+          group, (unsigned)(k >> 32) == hi ? (unsigned)k : 0u);
+      const uint32_t c = 0xFFFFFFFFu - lo;
+      if (sub == 0 && p0 + (s << (5 - lg)) + (lane >> lg) < HW &&
+          c < (uint32_t)C)
+        atomicAdd(hist + c, 1u);
+    }
   }
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float h = hist[c];
-    if (h != 0.0f) atomicAdd(counts + (size_t)img * C + c, h);
+    const unsigned int h = hist[c];
+    if (h != 0u) atomicAdd(counts + (size_t)img * C + c, (float)h);
   }
+}
+
+template <typename T, int S, int M>
+cudaError_t launch_hist(const void* logits, const float* noise,
+                        float* counts, int B, int HW, int C, uint2 key,
+                        cudaStream_t st) {
+  const int lg = head_lg(C);
+  const int rows = kThreads / 32 * S << (5 - lg);
+  const dim3 grid((HW + rows - 1) / rows, B);
+  gumbel_hist_kernel<T, S, M><<<grid, kThreads, (size_t)C * 4, st>>>(
+      static_cast<const T*>(logits), noise, counts, HW, C, lg, key);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_head(int plan, const void* logits, const float* noise,
+                        float* counts, int B, int HW, int C, uint2 key,
+                        cudaStream_t st) {
+  return plan == kWide
+             ? launch_hist<T, 4, 3>(logits, noise, counts, B, HW, C, key, st)
+             : launch_hist<T, 1, 4>(logits, noise, counts, B, HW, C, key, st);
 }
 
 // The block output of GEMM 2's sums v of row r, columns c..c+7, by
@@ -212,7 +348,8 @@ cudaError_t head(const void* h, const void* w2, const float* s2,
 }
 
 // d. counts [img, c] = the number of rows of image img whose key names
-// channel c; a slot still 0 (a row of NaN) counts nowhere.
+// channel c. Every row's key is nonzero after the head GEMM (argmax_key);
+// a slot still 0, or a channel past C, counts nowhere.
 __global__ void __launch_bounds__(kThreads)
     count_keys_kernel(const unsigned long long* keys, float* counts, int HW,
                       int C) {
@@ -239,25 +376,61 @@ cudaError_t count_keys(const unsigned long long* keys, float* counts, int B,
   return cudaGetLastError();
 }
 
+// Counts into ``mismatches`` the positive normal floats on which
+// log_normal and logf differ in any bit.
+__global__ void log_check_kernel(unsigned long long* mismatches) {
+  unsigned n = 0;
+  for (uint32_t b = 0x00800000u + blockIdx.x * blockDim.x + threadIdx.x;
+       b < 0x7f800000u; b += gridDim.x * blockDim.x) {
+    const float a = __uint_as_float(b);
+    n += __float_as_uint(log_normal(a)) != __float_as_uint(logf(a));
+  }
+  n = __reduce_add_sync(0xFFFFFFFFu, n);
+  if ((threadIdx.x & 31) == 0 && n != 0u)
+    atomicAdd(mismatches, (unsigned long long)n);
+}
+
 }  // namespace
 }  // namespace cpt
 
+// Kernel B: counts [B, C] f32 (zeroed by the caller) of the rows' noisy
+// argmax; logits (f32 or bf16) and noise 16-byte aligned. ``plan``: 0 the
+// rule (head_plan); kWide or kSingle force that plan (the checks run both
+// on small planes). ``taken``, if not null, receives the plan run.
 extern "C" int cpt_gumbel_hard_counts(const void* logits, int x_bf16,
                                       const float* noise, float* counts,
                                       int B, int HW, int C,
-                                      unsigned long long seed, void* stream) {
-  if (C % 4 != 0) return (int)cudaErrorInvalidValue;
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
-  const dim3 grid((HW + cpt::kRows - 1) / cpt::kRows, B);
-  const size_t smem = (size_t)C * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    cpt::gumbel_hist_kernel<__nv_bfloat16><<<grid, cpt::kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(logits), noise, counts, HW, C, key);
-  } else {
-    cpt::gumbel_hist_kernel<float><<<grid, cpt::kThreads, smem, s>>>(
-        static_cast<const float*>(logits), noise, counts, HW, C, key);
+                                      unsigned long long seed, int plan,
+                                      int* taken, void* stream) {
+  if (B <= 0 || HW <= 0 || C <= 0 || C % 4 != 0 || C > 12288 || plan < 0 ||
+      plan > cpt::kSingle)
+    return (int)cudaErrorInvalidValue;
+  if (plan == 0) {
+    int sms = 0;
+    const cudaError_t err = cpt::sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    plan = cpt::head_plan(B, HW, C, sms);
   }
+  if (taken != nullptr) *taken = plan;
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return (int)cpt::launch_head<__nv_bfloat16>(plan, logits, noise, counts,
+                                                B, HW, C, key, s);
+  return (int)cpt::launch_head<float>(plan, logits, noise, counts, B, HW, C,
+                                      key, s);
+}
+
+// The count of positive normal floats on which common.cuh: log_normal and
+// logf differ, into ``mismatches`` (zeroed by the caller): 0 means kernels
+// B and C draw logf's noise bit for bit.
+extern "C" int cpt_gumbel_log_mismatches(unsigned long long* mismatches,
+                                         void* stream) {
+  int sms = 0;
+  const cudaError_t err = cpt::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  cpt::log_check_kernel<<<8 * sms, cpt::kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(mismatches);
   return (int)cudaGetLastError();
 }
 

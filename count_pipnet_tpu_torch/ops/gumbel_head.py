@@ -4,7 +4,8 @@ Count-PIPNet's inference head with ``gumbel_softmax(hard=True)`` is
 
     counts[b, p] = #patches where argmax(logits[b, patch, :] + gumbel) == p
 
-(the temperature cancels inside the argmax). Port of
+(the temperature cancels inside the argmax; a row's winner is its first
+NaN, else its first maximum, the rule of ``jnp.argmax``). Port of
 count_pipnet_tpu/ops/pallas/gumbel_head.py:
 
 * :func:`gumbel_hard_counts` — the standalone head (kernel B,
@@ -32,6 +33,8 @@ is the same draw in plain PyTorch, so the plain versions and the kernels
 see the same noise for the same seed. Either takes injected ``noise``
 instead (the parity checks against the JAX package).
 """
+
+import ctypes
 
 import torch
 
@@ -94,7 +97,8 @@ def gumbel_noise(seed: int, b: int, hw: int, c: int, device=None):
 
 def _histogram(res, noise):
     """counts [B, P] of argmax(res + noise) over the last axis of
-    [B, HW, P] f32 tensors (ties to the lowest index)."""
+    [B, HW, P] f32 tensors: each row's first NaN, else its first maximum
+    (``torch.argmax``, as ``jnp.argmax``)."""
     winner = torch.argmax(res + noise, dim=-1)
     counts = torch.zeros(res.shape[0], res.shape[-1], dtype=torch.float32,
                          device=res.device)
@@ -129,11 +133,24 @@ def gumbel_hard_counts(feats, seed: int = 0, noise=None):
     """[B, H, W, P] logits (f32 or bf16) -> [B, P] f32 gumbel-hard counts.
 
     ``noise``: optional pre-drawn Gumbel noise of shape [B, H, W, P] or
-    [B, H*W, P]; else Philox noise from ``seed``. CUDA tensor: kernel B;
-    CPU tensor: :func:`gumbel_hard_counts_plain`.
+    [B, H*W, P]; else Philox noise from ``seed``. A row's winner is its
+    first NaN, else its first maximum (``torch.argmax``'s rule). CUDA
+    tensor: kernel B; CPU tensor: :func:`gumbel_hard_counts_plain`.
     """
     if feats.device.type == "cpu":
         return gumbel_hard_counts_plain(feats, seed, noise)
+    return _kernel_b(feats, seed, noise)[0]
+
+
+# kernel B's plans (ops/cuda/gumbel_head.cu): four rows a thread, one quad
+# of one row a thread
+PLAN_WIDE, PLAN_SINGLE = 1, 2
+
+
+def _kernel_b(feats, seed, noise, plan: int = 0):
+    """Kernel B on a CUDA tensor: (counts, the plan it ran, PLAN_WIDE or
+    PLAN_SINGLE). ``plan`` 0 lets the kernel's rule choose; the checks force
+    each plan on small planes and read the rule's choice on large ones."""
     if feats.device.type != "cuda":
         raise ValueError(f"gumbel_hard_counts: unsupported device "
                          f"{feats.device}")
@@ -145,15 +162,28 @@ def gumbel_hard_counts(feats, seed: int = 0, noise=None):
                          f"strides {feats.stride()}")
     if c % 4:
         raise ValueError(f"gumbel_hard_counts needs P % 4 == 0, got {c}")
+    if feats.data_ptr() % (4 * feats.element_size()):
+        feats = feats.clone()  # one 8- or 16-byte load a channel quad
     nz = _noise_arg(noise, b, h * w, c, feats.device)
     counts = torch.zeros(b, c, dtype=torch.float32, device=feats.device)
+    taken = ctypes.c_int(0)
     code = _cuda.library().cpt_gumbel_hard_counts(
         feats.data_ptr(), int(feats.dtype == torch.bfloat16), _cuda.ptr(nz),
-        counts.data_ptr(), b, h * w, c, int(seed) & (2**64 - 1),
-        _cuda.stream_ptr(feats.device))
+        counts.data_ptr(), b, h * w, c, int(seed) & (2**64 - 1), int(plan),
+        ctypes.byref(taken), _cuda.stream_ptr(feats.device))
     _cuda.check(code, "gumbel_hard_counts")
     _cuda.count_launch("gumbel_hard_counts", c)
-    return counts
+    return counts, taken.value
+
+
+def _log_mismatches(device):
+    """The count of positive normal floats on which the log that kernels B
+    and C draw their noise with (ops/cuda/common.cuh: log_normal) differs
+    from CUDA's ``logf`` in any bit; a check on a CUDA ``device``."""
+    out = torch.zeros(1, dtype=torch.int64, device=device)
+    _cuda.check(_cuda.library().cpt_gumbel_log_mismatches(
+        out.data_ptr(), _cuda.stream_ptr(out.device)), "gumbel_log_mismatches")
+    return int(out.item())
 
 
 def fused_block_gumbel_counts_plain(x, pb, seed: int = 0, noise=None,
@@ -211,26 +241,28 @@ def block_head_keys_plain(res, noise):
     same values in any shape) as the 64-bit key of ops/cuda/common.cuh:
     argmax_key, int64 [...] holding the unsigned word's bits: the high word
     the value's bits mapped so that unsigned order is float order (-0 as
-    +0), the low word 0xFFFFFFFF - channel, the row's largest key in
-    unsigned order. NaN is key 0 and never wins; a row of NaN gives 0
-    (torch.argmax would take its first NaN)."""
+    +0) with every NaN above +inf, the low word 0xFFFFFFFF - channel, the
+    row's largest key in unsigned order. So a row's key names its first
+    NaN, else its first maximum, as ``torch.argmax`` does, and no key is
+    0."""
     v = res.float() + noise.reshape(res.shape).float()
     c = v.shape[-1]
     u = v.contiguous().view(torch.int32).to(torch.int64) & _MASK
     u = torch.where(u == 0x80000000, 0, u)
     hi = torch.where(u >= 0x80000000, u ^ _MASK, u | 0x80000000)
+    hi = torch.where(torch.isnan(v), _MASK, hi)
     lo = _MASK - torch.arange(c, dtype=torch.int64, device=v.device)
     # the key less 2^63, which orders as a signed int64 as the key does
-    # unsigned; NaN at the bottom
+    # unsigned
     signed = (hi - (1 << 31)) * (1 << 32) + lo
-    signed = torch.where(torch.isnan(v), _SIGN, signed)
     return signed.amax(dim=-1) ^ _SIGN
 
 
 def counts_from_keys_plain(keys, b: int, hw: int, c: int):
     """Plain version of kernel C's count kernel: ``keys`` (``b`` images of
     ``hw`` rows) -> [b, c] f32 counts of the channels they name; a key 0
-    (a row of NaN) counts nowhere."""
+    (a slot the head never wrote) or a channel past ``c`` counts
+    nowhere."""
     k = keys.reshape(b, hw)
     ch = _MASK - (k & _MASK)
     ok = (k != 0) & (ch < c)

@@ -4,13 +4,16 @@ the argmax key that GEMM 2's head epilogue leaves for each row
 histogram of those keys (``counts_from_keys_plain``).
 
 (a) The key encoding: the decoded row maximum is ``torch.argmax`` on random
-    rows and on rows with repeated maxima, +-0 and -inf. A row of NaN keeps
-    key 0 and adds no count (``torch.argmax`` would name its first NaN; the
-    kernels' noisy argmax never lets NaN win).
+    rows and on rows with repeated maxima, +-0, -inf and NaN: a row with
+    NaN names its first NaN, a row of NaN or of -inf channel 0, and every
+    row counts once (the rule of ``jnp.argmax``, which kernels B and C
+    keep).
 (b) The stages compose bit for bit to ``fused_block_gumbel_counts_plain``
     in the bf16 and int8-static modes, f32 and bf16 planes, injected and
-    Philox noise, with R = 126 rows (not a multiple of the GEMM's 128-row
-    tiles); so do the stage wrappers on CPU tensors.
+    Philox noise and noise with NaN and -inf rows, with R = 126 rows (not
+    a multiple of the GEMM's 128-row tiles); so do the stage wrappers on
+    CPU tensors, and the keys' counts equal the whole plain version's
+    histogram on a plane with NaN and -inf rows.
 (c) The composed stages against the JAX package's
     ``fused_block_gumbel_counts`` (Pallas in interpret mode) under the same
     injected noise: counts agreement >= 0.99, row sums = H * W, as
@@ -75,19 +78,58 @@ def test_argmax_keys_decode_to_torch_argmax(case):
     assert (won[v[:, 39] > -float("inf")] == 39).all()
 
 
-def test_nan_rows_add_no_count():
+def test_nan_rows_count_at_their_first_nan():
+    """The JAX rule (jnp.argmax, torch.argmax): a row with NaN names its
+    first NaN channel, a row of NaN channel 0, and every row counts once."""
     v = _rows("random")
-    v[3] = float("nan")         # a row of NaN: key 0, no count
-    v[4, 7] = float("nan")      # a NaN beside numbers never wins
+    v[3] = float("nan")         # a row of NaN: channel 0
+    v[4, 7] = float("nan")      # a NaN beside numbers wins
+    v[5, [9, 30]] = float("nan")  # the first NaN wins
+    v[6] = -float("inf")        # a row of -inf: channel 0
+    v[7, 39] = float("nan")     # NaN beats +inf
+    v[7, 2] = float("inf")
     keys = tgh.block_head_keys_plain(v, torch.zeros_like(v))
-    assert keys[3].item() == 0 and keys.count_nonzero().item() == 63
-    assert _decode(keys)[4].item() == torch.argmax(
-        torch.nan_to_num(v[4], nan=-float("inf"))).item()
+    assert keys.count_nonzero().item() == 64
+    won = _decode(keys)
+    assert won[3:8].tolist() == [0, 7, 9, 0, 39]
+    assert torch.equal(won, torch.argmax(v, dim=-1))
     counts = tgh.counts_from_keys_plain(keys, 4, 16, 40)
     assert counts.shape == (4, 40) and counts.dtype == torch.float32
-    assert counts.sum(dim=1).tolist() == [15.0, 16.0, 16.0, 16.0]
-    assert torch.equal(counts[1:], torch.nn.functional.one_hot(
-        _decode(keys[16:]).reshape(3, 16), 40).sum(dim=1).float())
+    assert counts.sum(dim=1).tolist() == [16.0] * 4
+    assert torch.equal(counts, torch.nn.functional.one_hot(
+        won.reshape(4, 16), 40).sum(dim=1).float())
+
+
+def _nan_noise(b, hw, c, seed=4):
+    """Injected noise [b, hw, c] with NaN and -inf rows: NaN in a few
+    channels, a whole NaN row, a whole -inf row, -inf but one channel."""
+    nz = torch.from_numpy(np.random.default_rng(seed).gumbel(
+        size=(b, hw, c)).astype(np.float32))
+    nz[0, 0, [c // 2, 5]] = float("nan")
+    nz[0, 1] = float("nan")
+    nz[0, 2] = -float("inf")
+    nz[1, 3] = -float("inf")
+    nz[1, 3, c - 1] = 0.0
+    nz[1, hw - 1, c - 1] = float("nan")
+    return nz
+
+
+@pytest.mark.parametrize("c", [16, 64, 256])
+def test_keys_count_as_the_histogram_on_nan_rows(c):
+    """On one f32 block-output plane with NaN and -inf rows, the stages'
+    plain versions (keys, then their counts) equal the whole plain
+    version's histogram (torch.argmax) exactly."""
+    b, hw = 2, 40
+    res = torch.from_numpy(np.random.default_rng(c).normal(
+        size=(b, hw, c)).astype(np.float32))
+    nz = _nan_noise(b, hw, c)
+    keys = tgh.block_head_keys_plain(res, nz)
+    want = tgh._histogram(res, nz)
+    assert torch.equal(tgh.counts_from_keys_plain(keys, b, hw, c), want)
+    assert want.sum(dim=1).tolist() == [hw] * b
+    won = _decode(keys)
+    assert won[0, :3].tolist() == [5, 0, 0] and won[1, 3].item() == c - 1
+    assert won[1, hw - 1].item() == c - 1
 
 
 def _case(mode, c=64, hw=(7, 9), seed=0):
@@ -98,7 +140,7 @@ def _case(mode, c=64, hw=(7, 9), seed=0):
     return x4, _prepared(tp, scales)
 
 
-@pytest.mark.parametrize("noise", ["injected", "philox"])
+@pytest.mark.parametrize("noise", ["injected", "philox", "nan rows"])
 @pytest.mark.parametrize("plane", ["f32", "bf16"])
 @pytest.mark.parametrize("mode", MODES)
 def test_stages_compose_to_the_plain_version(mode, plane, noise):
@@ -107,9 +149,12 @@ def test_stages_compose_to_the_plain_version(mode, plane, noise):
     if plane == "bf16":
         x = x.to(torch.bfloat16)
     b, h, w, c = x.shape
-    nz = torch.from_numpy(np.random.default_rng(4).gumbel(
-        size=(b, h * w, c)).astype(np.float32)) if noise == "injected" \
-        else None
+    nz = None
+    if noise == "injected":
+        nz = torch.from_numpy(np.random.default_rng(4).gumbel(
+            size=(b, h * w, c)).astype(np.float32))
+    elif noise == "nan rows":
+        nz = _nan_noise(b, h * w, c)
     want = tgh.fused_block_gumbel_counts_plain(x, pb, seed=3, noise=nz)
     assert want.sum(dim=1).tolist() == [h * w] * b
     drawn = nz if nz is not None else tgh.gumbel_noise(3, b, h * w, c)

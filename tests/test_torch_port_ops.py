@@ -109,29 +109,82 @@ def test_quantize_block_weights_folded_equals_jax():
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
 
 
-@pytest.mark.parametrize("shape", [(2, 5, 5, 128), (1, 26, 26, 128),
-                                   (3, 4, 4, 128)],
-                         ids=["small", "ragged_26x26", "batch_pad"])
-def test_gumbel_hard_counts_plain_matches_jax(shape):
+def _nan_rows(noise, p):
+    """``noise`` [B, H, W, P] with NaN and -inf rows put in: NaN in a few
+    channels of some rows (the first NaN wins), a whole NaN row (its
+    channel 0), a whole -inf row (channel 0, as every value ties) and a
+    row of -inf but one channel; the logits are finite, so the sums keep
+    the noise's NaN and -inf."""
+    nz = noise.copy().reshape(-1, p)
+    nz[0, [p // 2, 3]] = np.nan          # first NaN at 3
+    nz[1] = np.nan
+    nz[2] = -np.inf
+    nz[3] = -np.inf
+    nz[3, p - 1] = 0.0
+    nz[5, p - 1] = np.nan                # the last channel
+    nz[-1, [1, 2]] = np.nan
+    return nz.reshape(noise.shape)
+
+
+_GUMBEL_CASES = {
+    "small": ((2, 5, 5, 128), False),
+    "ragged_26x26": ((1, 26, 26, 128), False),
+    "batch_pad": ((3, 4, 4, 128), False),
+    "P16": ((2, 9, 9, 16), False),
+    "P64": ((3, 7, 7, 64), False),
+    "P256": ((1, 13, 13, 256), False),
+}
+_GUMBEL_CASES.update({f"nan_rows_P{p}": ((2, 6, 5, p), True)
+                      for p in (16, 64, 128, 256)})
+
+
+@pytest.mark.parametrize("case", list(_GUMBEL_CASES))
+def test_gumbel_hard_counts_plain_matches_jax(case):
+    """Kernel B's plain version equals the Pallas kernel (interpret mode)
+    under the same injected noise, exactly, at P = 16, 64, 128 and 256;
+    with NaN and -inf rows too (each row counts once: at its first NaN,
+    else at its first maximum, as jnp.argmax)."""
+    shape, nan_rows = _GUMBEL_CASES[case]
     rng = np.random.default_rng(sum(shape))
     feats = rng.normal(size=shape).astype(np.float32)
     noise = rng.gumbel(size=shape).astype(np.float32)
+    if nan_rows:
+        noise = _nan_rows(noise, shape[-1])
     want = np.asarray(jgh.gumbel_hard_counts(
         jnp.asarray(feats), 0, noise=jnp.asarray(noise), interpret=True))
     got = tgh.gumbel_hard_counts(torch.from_numpy(feats),
                                  noise=torch.from_numpy(noise))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, _ref_counts(feats, noise))
+    np.testing.assert_array_equal(want.sum(axis=1), shape[1] * shape[2])
+    if nan_rows:  # the rule spelled out in numpy
+        rows = (feats + noise).reshape(shape[0], -1, shape[-1])
+        nan = np.isnan(rows)
+        win = np.where(nan.any(axis=-1), nan.argmax(axis=-1),
+                       np.where(nan, -np.inf, rows).argmax(axis=-1))
+        assert win[0, :6].tolist() == [3, 0, 0, shape[-1] - 1,
+                                       win[0, 4], shape[-1] - 1]
+        np.testing.assert_array_equal(want, np.stack(
+            [np.bincount(w, minlength=shape[-1]) for w in win]))
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-def test_fused_block_gumbel_counts_plain_matches_jax(int8):
+@pytest.mark.parametrize("int8, nan_rows", [(False, False), (True, False),
+                                            (False, True), (True, True)],
+                         ids=["bf16", "int8", "bf16-nan_rows",
+                              "int8-nan_rows"])
+def test_fused_block_gumbel_counts_plain_matches_jax(int8, nan_rows):
+    """Kernel C's plain version against the Pallas kernel (interpret mode)
+    under the same injected noise, with NaN and -inf rows too: >= 0.99 of
+    the counts agree (the block's arithmetic differs from JAX's in the last
+    bits, so a few rows' winners may differ), each row counts once."""
     h = w = 26
     tp, jp = _params(C, 11, gamma=1e-2)
     x4 = np.random.default_rng(2).normal(size=(2, h, w, C)) \
         .astype(np.float32)
     noise = np.random.default_rng(4).gumbel(size=(2, h * w, C)) \
         .astype(np.float32)
+    if nan_rows:
+        noise = _nan_rows(noise, C)
     scales = _amax(x4, tp) if int8 else None
     want = np.asarray(jgh.fused_block_gumbel_counts(
         jnp.asarray(x4.reshape(2, h * w, C)), h, w, *jp, 0, int8=int8,
@@ -140,6 +193,7 @@ def test_fused_block_gumbel_counts_plain_matches_jax(int8):
         torch.from_numpy(x4), _prepared(tp, scales),
         noise=torch.from_numpy(noise)).numpy()
     np.testing.assert_array_equal(got.sum(axis=1), h * w)
+    np.testing.assert_array_equal(want.sum(axis=1), h * w)
     assert np.mean(got == want) >= 0.99
 
 
