@@ -7,10 +7,12 @@ the JAX package's; the public interface keeps its NHWC layout
 ([B, H, W, 3] images in, [B, H, W, P] maps and [B, P] counts out).
 
 It covers the gumbel-hard and softmax Count-PIPNet serving paths
-(``models/serving.py``, ``serving/engine.py``) and training
-(``python -m count_pipnet_tpu_torch.main``, ``train/``), with the
-flagship configs' routes on the hand-written kernels (``--fused_blocks``,
-``--fused_whole_blocks``, ``--fused_dwconv``) and the two views made on
-the device (``--device_augment``, ``--device_geometric``); ROADMAP.md
+(``models/serving.py``, ``serving/engine.py``) and the training of a
+Count-PIPNet or a PIP-Net (``python -m count_pipnet_tpu_torch.main``,
+``train/``), with the flagship configs' routes on the hand-written kernels
+(``--fused_blocks``, ``--fused_whole_blocks``, ``--fused_dwconv``), the
+two views made on the device (``--device_augment``,
+``--device_geometric``), the prototype visualisation (``interpret/``) and
+the synthetic dataset generators (``data/generate_*.py``); ROADMAP.md
 lists the rest.
 """

@@ -7,7 +7,7 @@
 
 Flags whose path the port does not carry yet raise ``NotImplementedError``
 when training starts (train/trainer.py:check_ported), naming their ROADMAP
-item. ``--disable_cuda`` selects the CPU; without it the CLI needs a CUDA
+Queue 1 item by its title. ``--disable_cuda`` selects the CPU; without it the CLI needs a CUDA
 device.
 """
 
@@ -71,8 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--resume_training", action="store_true")
     # Count-PIPNet flags
     add("--model", type=str, default="pipnet",
-        help='"count_pipnet" ("pipnet" is not ported yet: ROADMAP Queue 1 '
-             'item 7)')
+        help='"count_pipnet" for Count-PIPNet; any other value trains the '
+             'original PIP-Net (max-pooled softmax head)')
     add("--use_mid_layers", action="store_true")
     add("--num_stages", type=int, default=3)
     add("--max_count", type=int, default=3)
@@ -164,14 +164,14 @@ def build_parser() -> argparse.ArgumentParser:
              "best-model visualization")
     add("--interpret", action="store_true",
         help="the interpretability suite after training: not ported yet "
-             "(ROADMAP Queue 1 item 8)")
+             "(ROADMAP Queue 1: The interpretability suite and tooling)")
     add("--dtype", type=str, default="bfloat16",
         choices=["bfloat16", "float32"],
         help="compute dtype: bfloat16 = torch.autocast over the forward "
              "with f32 parameters")
     add("--mesh_shape", type=int, default=-1,
         help="data-parallel device count; the port runs on one device "
-             "(-1 or 1; more is ROADMAP Queue 1 item 5)")
+             "(-1 or 1; more is ROADMAP Queue 1: Multi-GPU training)")
     add("--profile_dir", type=str, default="",
         help="when set, write a torch.profiler trace of the first main "
              "epoch into this dir")

@@ -4,8 +4,9 @@
 The port's copy of count_pipnet_tpu/data/registry.py, with the
 device-side augmentation (``--device_augment``, ``--device_geometric``:
 data/device_augment.py). Left out: the multi-host loader slices (ROADMAP
-Queue 1 item 5); a missing synthetic dataset is reported with the
-generator to run instead of being rebuilt.
+Queue 1: Multi-GPU training). A missing synthetic dataset is regenerated
+by the port's own generators (data/ensure.py) before the paths are
+reported missing.
 
 Reference: util/data.py:17-259. Datasets: CUB-200-2011, pets, partimagenet,
 CARS, grayscale_example, geometric_shapes, geometric_shapes_gaussian_noise,
@@ -200,19 +201,28 @@ DATASET_RECIPES = {
 
 def validate_dataset_paths(args, basepath="./"):
     """Raise early, with the generator hint, if the named dataset's
-    directories are missing."""
+    directories are missing. A synthetic dataset is regenerated in place
+    first (data/ensure.py)."""
     if args.dataset not in DATASET_RECIPES:
         raise ValueError(
             f'Could not load data set, data set "{args.dataset}" not found!')
     _, dirs = DATASET_RECIPES[args.dataset]
     base = Path(basepath)
-    missing = sorted({str(base / d) for d in dirs
-                      if isinstance(d, str) and not (base / d).is_dir()})
+
+    def _missing():
+        return sorted({str(base / d) for d in dirs
+                       if isinstance(d, str) and not (base / d).is_dir()})
+
+    missing = _missing()
+    if missing:
+        from .ensure import ensure_synthetic_dataset
+        if ensure_synthetic_dataset(args.dataset, basepath):
+            missing = _missing()
     if missing:
         raise FileNotFoundError(
             "Dataset directories missing for "
             f'"{args.dataset}": {missing}. Generate them first, e.g. '
-            "python -m count_pipnet_tpu.data.generate_shapes / "
+            "python -m count_pipnet_tpu_torch.data.generate_shapes / "
             "generate_digits / preprocess_cub (see README.md Quick start).")
 
 

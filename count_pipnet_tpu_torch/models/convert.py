@@ -9,6 +9,8 @@ convnext (:349), extended to the whole Count-PIPNet. Layouts:
     dense kernel  [in, out]              -> [out, in]
     layer_scale   [C]                    -> [C, 1, 1]
 
+The same functions carry a PIP-Net tree (``backbone``, ``add_on``,
+``classification``, no ``intermediate``) to models.pipnet.PIPNet.
 The intermediate layer's leaves keep their names (``ramp``, ``weight``,
 ``embed``: the JAX package already holds ``weight`` and ``embed`` as
 [out, in]); the bilinear layer's ``W``/``V`` are flax ``Dense`` kernels.
@@ -17,7 +19,8 @@ Leaves may be numpy arrays, jax arrays or anything ``np.asarray`` takes;
 the result holds float32 CPU tensors. :func:`to_jax_params` is the inverse
 (state dict -> nested dict of float32 numpy arrays), and :func:`jax_path`
 names the flax leaf of one state-dict key. Loading the flax msgpack
-checkpoint files themselves is ROADMAP Queue 1 work.
+checkpoint files themselves is ROADMAP Queue 1: The flax-msgpack
+checkpoint loader.
 """
 
 import re
@@ -87,9 +90,9 @@ def intermediate_from_jax_params(params) -> dict:
 
 
 def from_jax_params(params) -> dict:
-    """Whole CountPIPNet flax params -> state dict of
-    models.pipnet.CountPIPNet (backbone, add-on conv, intermediate,
-    classifier)."""
+    """Whole CountPIPNet or PIPNet flax params -> state dict of
+    models.pipnet.CountPIPNet / PIPNet (backbone, add-on conv,
+    intermediate where there is one, classifier)."""
     sd = {f"backbone.{k}": v
           for k, v in backbone_from_jax_params(params["backbone"]).items()}
     sd.update({f"intermediate.{k}": v for k, v in

@@ -1,15 +1,19 @@
-"""Count-PIPNet in PyTorch.
+"""PIP-Net and Count-PIPNet in PyTorch.
 
-Port of count_pipnet_tpu/models/pipnet.py (reference
-pipnet/count_pipnet.py:70-110): backbone -> add-on (gumbel / softmax) ->
-spatial SUM (counts) -> round + clamp to [0, max_count] -> intermediate ->
-non-negative classifier. Training returns raw counts (for the tanh loss),
-inference the clamped ones. Outputs are ``(proto_features [B, H, W, P],
-pooled [B, P], logits)``. ``--fused_blocks``, ``--fused_dwconv`` and
-``--fused_whole_blocks`` build the backbone on the kernel block routes
-(models/convnext.py).
+Port of count_pipnet_tpu/models/pipnet.py.
 
-``PIPNet`` and the ResNet backbones are ROADMAP Queue 1 work.
+* ``PIPNet`` (reference pipnet/pipnet.py:31-41): backbone -> softmax
+  add-on -> spatial MAX -> non-negative classifier; at inference pooled
+  values under 0.1 are zeroed before the classifier (abstention).
+* ``CountPIPNet`` (reference pipnet/count_pipnet.py:70-110): backbone ->
+  add-on (gumbel / softmax) -> spatial SUM (counts) -> round + clamp to
+  [0, max_count] -> intermediate -> non-negative classifier. Training
+  returns raw counts (for the tanh loss), inference the clamped ones.
+
+Outputs are ``(proto_features [B, H, W, P], pooled [B, P], logits)``.
+``--fused_blocks``, ``--fused_dwconv`` and ``--fused_whole_blocks`` build
+the backbone on the kernel block routes (models/convnext.py). The ResNet
+backbones are not ported (ROADMAP Queue 1: ResNet backbones).
 """
 
 from typing import Optional
@@ -22,8 +26,8 @@ from .convnext import convnext_tiny_13_features, convnext_tiny_26_features
 from .heads import AddOn, NonNegLinear
 from .intermediates import make_intermediate
 
-__all__ = ["CountPIPNet", "get_count_network", "build_backbone",
-           "importance_per_class", "BACKBONE_BUILDERS"]
+__all__ = ["PIPNet", "CountPIPNet", "get_pipnet", "get_count_network",
+           "build_backbone", "importance_per_class", "BACKBONE_BUILDERS"]
 
 BACKBONE_BUILDERS = {
     "convnext_tiny_26": convnext_tiny_26_features,
@@ -41,7 +45,7 @@ def build_backbone(net: str, use_mid_layers: bool = False,
     if net in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone {net!r} is not ported to PyTorch yet (ROADMAP "
-            f"Queue 1: PIPNet and ResNets)")
+            f"Queue 1: ResNet backbones)")
     if net not in BACKBONE_BUILDERS:
         raise ValueError(
             f"Network '{net}' is not supported. Supported: "
@@ -49,6 +53,38 @@ def build_backbone(net: str, use_mid_layers: bool = False,
     return BACKBONE_BUILDERS[net](
         num_stages=num_stages if use_mid_layers else 7, fused_mlp=fused_mlp,
         fused_whole_block=fused_whole_block, fused_dwconv=fused_dwconv)
+
+
+class PIPNet(nn.Module):
+    """Original PIP-Net: softmax add-on (the 1x1 conv when
+    ``num_features > 0``) + spatial max pool."""
+
+    def __init__(self, num_classes: int, num_prototypes: int,
+                 backbone: nn.Module, num_features: int = 0,
+                 bias: bool = False):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_prototypes = num_prototypes
+        self.num_features = num_features
+        self.backbone = backbone
+        self.add_on = AddOn(backbone.out_channels, num_features, "softmax")
+        self.classification = NonNegLinear(num_prototypes, num_classes,
+                                           bias=bias)
+
+    def forward(self, xs, *, inference: bool = False, train: bool = False,
+                tau: float = 1.0, generator=None, noise=None,
+                drop_masks=None):
+        """``xs`` [B, H, W, 3]; ``tau`` and ``noise`` are accepted for the
+        Count-PIPNet interface and unused (the add-on is a softmax)."""
+        features = self.backbone(xs, train=train, generator=generator,
+                                 drop_masks=drop_masks)
+        proto = self.add_on(features, train=train)
+        pooled = proto.float().amax(dim=(1, 2))
+        if inference:
+            # abstention: ignore prototypes under 0.1 similarity
+            # (reference pipnet.py:36)
+            pooled = torch.where(pooled < 0.1, 0.0, pooled)
+        return proto, pooled, self.classification(pooled)
 
 
 class CountPIPNet(nn.Module):
@@ -120,6 +156,30 @@ def importance_per_class(model: CountPIPNet, classifier_input_scalars=None):
     return w @ attribution.abs().t()
 
 
+def _backbone_of(args):
+    """(backbone, num_features, num_prototypes) of the CLI's ``args``: the
+    add-on's width when ``num_features > 0``, else the backbone's."""
+    backbone = build_backbone(
+        args.net, use_mid_layers=getattr(args, "use_mid_layers", False),
+        num_stages=getattr(args, "num_stages", 2),
+        fused_mlp=getattr(args, "fused_blocks", False),
+        fused_whole_block=getattr(args, "fused_whole_blocks", False),
+        fused_dwconv=getattr(args, "fused_dwconv", False))
+    num_features = getattr(args, "num_features", 0) or 0
+    return (backbone, num_features,
+            num_features if num_features > 0 else backbone.out_channels)
+
+
+def get_pipnet(num_classes: int, args):
+    """PIPNet factory (reference pipnet/pipnet.py:74-140) on the ConvNeXt
+    backbones. Returns (model, num_prototypes)."""
+    backbone, num_features, num_prototypes = _backbone_of(args)
+    model = PIPNet(num_classes=num_classes, num_prototypes=num_prototypes,
+                   backbone=backbone, num_features=num_features,
+                   bias=getattr(args, "bias", False))
+    return model, num_prototypes
+
+
 def get_count_network(num_classes: int, args, max_count: int = 3,
                       use_ste: bool = True):
     """CountPIPNet factory (reference pipnet/count_pipnet.py:324-436);
@@ -128,15 +188,7 @@ def get_count_network(num_classes: int, args, max_count: int = 3,
         raise ValueError(
             f"Network '{args.net}' is not supported. Supported networks: "
             f"{sorted(BACKBONE_BUILDERS)}")
-    backbone = build_backbone(
-        args.net, use_mid_layers=getattr(args, "use_mid_layers", False),
-        num_stages=getattr(args, "num_stages", 2),
-        fused_mlp=getattr(args, "fused_blocks", False),
-        fused_whole_block=getattr(args, "fused_whole_blocks", False),
-        fused_dwconv=getattr(args, "fused_dwconv", False))
-    num_features = getattr(args, "num_features", 0) or 0
-    num_prototypes = num_features if num_features > 0 \
-        else backbone.out_channels
+    backbone, num_features, num_prototypes = _backbone_of(args)
     model = CountPIPNet(
         num_classes=num_classes, num_prototypes=num_prototypes,
         backbone=backbone, max_count=max_count, use_ste=use_ste,

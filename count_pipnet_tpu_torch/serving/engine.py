@@ -2,7 +2,7 @@
 
 Port of count_pipnet_tpu/serving/engine.py for one device (the JAX
 engine's ``mesh`` option, multi-device data parallel serving, is ROADMAP
-Queue 1 work). A service receives single images at unpredictable times and
+Queue 1: Multi-GPU serving). A service receives single images at unpredictable times and
 must trade latency against the device's preference for large batches:
 
 * **Batch-size ladder**: requests are padded up to the nearest size in

@@ -4,16 +4,21 @@ Port of count_pipnet_tpu/train/trainer.py. Phase structure:
 
 * Phase 1 (prototype pretraining, main.py:238-295): align weight ramps
   epoch/nr_epochs, tanh weight 5, class weight 0; classifier frozen, the
-  early backbone frozen; Gumbel tau annealed 1.0 -> 0.1 with a 25 %
-  stabilisation tail; net LR on a per-iteration cosine
-  (T_max = len(loader) * epochs, eta_min = lr_block / 100).
+  early backbone frozen; Count-PIPNet's Gumbel tau annealed 1.0 -> 0.1
+  with a 25 % stabilisation tail; net LR on a per-iteration cosine
+  (T_max = len(loader) * epochs, eta_min = lr_block / 100). Then the
+  prototypes are visualised (interpret/vis_pipnet.py).
 * Phase 2 (main.py:305-437): fresh optimizer state; align 5 / tanh 2 /
   class 2; a finetune window (classifier only) for the first
   ``epochs_finetune`` epochs; the backbone unfreezes after
   ``freeze_epochs + epochs_finetune``; weight zeroing every 30 epochs and
-  at the last; per-epoch evaluation, CSV row and checkpoints; classifier
-  LR on warm restarts (T_0 = 5 or 10, eta_min 1e-3) with fractional epoch
-  stepping.
+  at the last; Count-PIPNet without STE trains the classifier only;
+  per-epoch evaluation, CSV row and checkpoints; classifier LR on warm
+  restarts (T_0 = 5 or 10, eta_min 1e-3) with fractional epoch stepping;
+  the best checkpoint's prototypes visualised at the end.
+
+``--model count_pipnet`` builds a Count-PIPNet, any other value the
+PIP-Net (models/pipnet.py), as in the JAX package.
 
 A phase's trainable groups become ``requires_grad`` (optim.set_trainable),
 so autograd computes no backward for what is frozen. ``--dtype bfloat16``
@@ -31,7 +36,7 @@ import torch
 
 from ..config import save_args
 from ..data.device_augment import make_device_twoview_augment
-from ..models.pipnet import get_count_network
+from ..models.pipnet import get_count_network, get_pipnet
 from ..utils.checkpoint import (CheckpointManager, find_shared_backbone,
                                 graft_state_dict, load_backbone_only)
 from ..utils.log import Log
@@ -56,20 +61,19 @@ _METRICS = ("loss", "acc", "align", "tanh", "class", "align_weighted",
 
 def check_ported(args):
     """Raise ``NotImplementedError`` for a flag whose path the port does not
-    carry yet, naming its ROADMAP item."""
+    carry yet, naming its ROADMAP Queue 1 item by title."""
     g = lambda k, d=False: getattr(args, k, d)  # noqa: E731
+    is_count = g("model", "pipnet") == "count_pipnet"
     missing = [
-        (g("model", "pipnet") != "count_pipnet",
-         f"--model {g('model', 'pipnet')} (only count_pipnet is ported; "
-         "PIP-Net is ROADMAP Queue 1 item 7)"),
         (g("mesh_shape", -1) > 1,
-         "--mesh_shape > 1 (multi-GPU is ROADMAP Queue 1 item 5)"),
-        (g("interpret"), "--interpret (ROADMAP Queue 1 item 8)"),
-        (g("intermediate_layer", "onehot") != "onehot",
-         f"--intermediate_layer {g('intermediate_layer')} (ROADMAP Queue 1 "
-         "item d)"),
+         "--mesh_shape > 1 (ROADMAP Queue 1: Multi-GPU training)"),
+        (g("interpret"), "--interpret (ROADMAP Queue 1: The "
+         "interpretability suite and tooling)"),
+        (is_count and g("intermediate_layer", "onehot") != "onehot",
+         f"--intermediate_layer {g('intermediate_layer')} (ROADMAP Queue 1: "
+         "Training with the four other intermediates)"),
         (not str(g("net", "")).startswith("convnext"),
-         f"--net {g('net')} (ROADMAP Queue 1 item f)"),
+         f"--net {g('net')} (ROADMAP Queue 1: ResNet backbones)"),
     ]
     for bad, what in missing:
         if bad:
@@ -88,12 +92,16 @@ class Trainer:
             device or ("cpu" if getattr(args, "disable_cuda", False)
                        else "cuda"))
         self.dtype = getattr(args, "dtype", "bfloat16")
+        self.is_count = getattr(args, "model", "pipnet") == "count_pipnet"
         self.use_gumbel = (getattr(args, "activation", "gumbel_softmax")
                            == "gumbel_softmax")
         torch.manual_seed(args.seed)
-        self.model, self.num_prototypes = get_count_network(
-            num_classes, args, max_count=getattr(args, "max_count", 3),
-            use_ste=getattr(args, "use_ste", False))
+        if self.is_count:
+            self.model, self.num_prototypes = get_count_network(
+                num_classes, args, max_count=getattr(args, "max_count", 3),
+                use_ste=getattr(args, "use_ste", False))
+        else:
+            self.model, self.num_prototypes = get_pipnet(num_classes, args)
         self._classifier_init()
         self.model.to(self.device)
         self.generator = torch.Generator(self.device).manual_seed(args.seed)
@@ -153,7 +161,8 @@ class Trainer:
     def main_masks(self, epoch: int, epochs_to_finetune: int,
                    freeze_epochs: int):
         """main.py:333-390."""
-        count_no_ste = not getattr(self.args, "use_ste", False)
+        count_no_ste = self.is_count and not getattr(self.args, "use_ste",
+                                                     False)
         if epoch <= epochs_to_finetune:
             labels, finetune = {"cls_weight", "cls_bias", "intermediate"}, True
         elif count_no_ste:
@@ -236,6 +245,7 @@ class Trainer:
             batch = (v1, v2, self.to_device(ys, torch.int64))
             metrics = train_step(
                 self.model, self.optimizer, batch, sched,
+                is_count_pipnet=self.is_count,
                 enforce_weight_sparsity=getattr(
                     args, "enforce_weight_sparsity", True),
                 tanh_loss_coeff=getattr(args, "tanh_loss_coeff", 1.0),
@@ -321,6 +331,18 @@ def _print_scoring_sheet(trainer, classes):
               f"prototypes: {relevant}", flush=True)
 
 
+def _visualize(trainer, projectloader, num_classes, folder, args, what,
+               **kw):
+    """vizualize_network into ``<log_dir>/<folder>``; a failure is printed
+    and the run carries on, as in the JAX trainer."""
+    try:
+        from ..interpret.vis_pipnet import vizualize_network
+        vizualize_network(trainer, projectloader, num_classes, folder, args,
+                          **kw)
+    except Exception as e:
+        print(f"({what} skipped: {e})", flush=True)
+
+
 def run_pipnet(args, loaders=None):
     """Full training run (reference main.py:42-496). ``loaders``: the
     8-tuple of ``data.get_dataloaders`` (seven loaders and the class
@@ -335,8 +357,8 @@ def run_pipnet(args, loaders=None):
     if loaders is None:
         from ..data.registry import get_dataloaders
         loaders = get_dataloaders(args)
-    (trainloader, trainloader_pretraining, _, _, _, testloader, _,
-     classes) = loaders
+    (trainloader, trainloader_pretraining, _, _, projectloader, testloader,
+     _, classes) = loaders
     num_classes = len(classes)
 
     ckpt = CheckpointManager(args)
@@ -391,7 +413,7 @@ def run_pipnet(args, loaders=None):
             trainloader_pretraining, epoch, args.epochs_pretrain,
             pretrain=True, finetune=False, masks=trainer.pretrain_masks(),
             net_sched=net_sched, cls_sched=None)
-        if trainer.use_gumbel:
+        if trainer.is_count and trainer.use_gumbel:
             trainer.anneal_tau(epoch)
         lrs_pretrain += info["lrs_net"]
         _plot_lrs(lrs_pretrain, os.path.join(args.log_dir,
@@ -403,8 +425,12 @@ def run_pipnet(args, loaders=None):
             info["tanh_loss_weighted"], "n.a.")
     if args.epochs_pretrain > 0 and not resumed:
         ckpt.save_pretrained_checkpoint(trainer.model.state_dict())
-    print("(prototype visualisation is not ported to PyTorch yet: ROADMAP "
-          "Queue 1 item 8)", flush=True)
+    _visualize(trainer, projectloader, num_classes,
+               "visualised_pretrained_prototypes_topk", args,
+               "pretrain prototype visualization", k=10,
+               are_pretraining_prototypes=True, plot_histograms=False,
+               visualize_prototype_maps=False,
+               plot_topk=getattr(args, "viz_topk", True))
 
     # ---------------- PHASE 2: classification training --------------------
     if not resumed:
@@ -495,8 +521,14 @@ def run_pipnet(args, loaders=None):
         trainer.model.load_state_dict(state["model"])
         print(f"Loaded best model from epoch {meta.get('epoch')} with "
               f"accuracy {meta.get('accuracy', 0):.4f}", flush=True)
-        print("(prototype visualisation is not ported to PyTorch yet: "
-              "ROADMAP Queue 1 item 8)", flush=True)
+        _visualize(trainer, projectloader, num_classes,
+                   f"visualised_prototypes_topk_best_model_epoch"
+                   f"{meta.get('epoch')}", args, "prototype visualization",
+                   plot_histograms=getattr(args, "viz_histograms", False),
+                   visualize_prototype_maps=getattr(
+                       args, "viz_prototype_maps", True),
+                   plot_topk=getattr(args, "viz_topk", True),
+                   are_pretraining_prototypes=False)
     else:
         print("Failed to load best model for prototype visualization",
               flush=True)

@@ -15,8 +15,8 @@ util/checkpoint_manager.py, util/selective_loading.py):
 
 Format: ``torch.save`` of ``{"model": state_dict, "optimizer": state
 dict or {}}`` plus a JSON sidecar, each written to a temporary file and
-renamed. Reading the JAX package's msgpack files is ROADMAP Queue 1
-item g.
+renamed. Reading the JAX package's msgpack files is ROADMAP Queue 1: The
+flax-msgpack checkpoint loader.
 """
 
 import hashlib

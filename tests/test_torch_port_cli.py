@@ -1,11 +1,13 @@
 """The port's command line end to end on the CPU (``--disable_cuda``): the
-verify recipe with ``--fused_blocks`` on a generated shapes dataset writes
-the 15-column CSV and the checkpoint roles with their sidecars, and
-``--resume_training`` continues the run; the same recipe on the
-whole-block route with the device augmentation, and on the depthwise +
-fused-MLP route; without a CUDA device and without ``--disable_cuda`` it
-exits non-zero; its flags and defaults are the JAX package's; flags whose
-path is not ported raise."""
+verify recipe with ``--fused_blocks`` on a shapes dataset made by the
+port's generator writes the 15-column CSV, the checkpoint roles with
+their sidecars and the prototype visualisations (after pretraining and of
+the best model, its prototype maps too), and ``--resume_training``
+continues the run; the same recipe on the whole-block route with the
+device augmentation, on the depthwise + fused-MLP route, and with the
+default ``--model pipnet``; without a CUDA device and without
+``--disable_cuda`` it exits non-zero; its flags and defaults are the JAX
+package's; flags whose path is not ported raise."""
 
 import argparse
 import csv
@@ -45,16 +47,18 @@ def _run(args, cwd, **kw):
 
 
 def _generate_shapes(cwd):
-    gen = _run(["-m", "count_pipnet_tpu.data.generate_shapes",
+    gen = _run(["-m", "count_pipnet_tpu_torch.data.generate_shapes",
                 "--output_dir", "./data/geometric_shapes/dataset",
                 "--img_size", "64", "--train_samples_per_class", "4",
                 "--test_samples_per_class", "2", "--seed", "0"], cwd)
     assert gen.returncode == 0, gen.stderr[-2000:]
 
 
-def _check_artifacts(run):
-    """The 15-column CSV of one pretrain and two main epochs, and the
-    checkpoint roles with their sidecars."""
+def _check_artifacts(run, maps=True):
+    """The 15-column CSV of one pretrain and two main epochs, the
+    checkpoint roles with their sidecars, and the top-k grids after
+    pretraining and of the best model (with ``maps``, its prototype
+    maps)."""
     with open(run / "log_epoch_overview.csv") as f:
         rows = list(csv.reader(f))
     assert len(rows[0]) == 15 and rows[0][0] == "epoch"
@@ -68,6 +72,14 @@ def _check_artifacts(run):
         "epoch"] == 2
     assert (run / "out.txt").is_file()
     assert (run / "metadata" / "args.txt").is_file()
+    pre = run / "visualised_pretrained_prototypes_topk"
+    assert len(list(pre.glob("grid_topk_*.png"))) >= 2
+    assert list(pre.glob("prototype_*/p*_0_sim*.png"))
+    best, = run.glob("visualised_prototypes_topk_best_model_epoch*")
+    assert (best / "grid_topk_all.png").is_file()
+    assert list(best.glob("grid_topk_[0-9]*.png"))
+    assert bool(list(best.glob("feature_maps/prototype_*/*_overlay.png"))) \
+        == maps
 
 
 def test_cli_trains_writes_artifacts_and_resumes(tmp_path):
@@ -78,7 +90,8 @@ def test_cli_trains_writes_artifacts_and_resumes(tmp_path):
     run = tmp_path / "runs" / "vfy"
     _check_artifacts(run)
 
-    res = _run(cli + ["--epochs", "3", "--resume_training"], tmp_path)
+    res = _run(cli + ["--epochs", "3", "--resume_training",
+                      "--viz_prototype_maps", "False"], tmp_path)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert "Resuming from checkpoint" in res.stdout
     assert "Pretrain Epoch" not in res.stdout
@@ -91,16 +104,44 @@ def test_cli_trains_writes_artifacts_and_resumes(tmp_path):
     ["--fused_dwconv", "--fused_blocks"],
 ], ids=["whole_blocks_device_augment", "dwconv_fused_blocks"])
 def test_cli_new_routes_write_artifacts(tmp_path, flags):
-    """The recipe on the routes of the flagship configs: the CSV and the
-    checkpoint roles, and (with the device augmentation) the loader's
+    """The recipe on the routes of the flagship configs: the CSV, the
+    checkpoint roles and the top-k grids (the prototype maps off, to keep
+    the run short), and (with the device augmentation) the loader's
     single-view batches went through the device augmentation."""
     _generate_shapes(tmp_path)
     recipe = [a for a in RECIPE if a != "--fused_blocks"]
     res = _run(["-m", "count_pipnet_tpu_torch.main", *recipe, *flags,
-                "--disable_cuda", "--epochs", "2"], tmp_path)
+                "--disable_cuda", "--epochs", "2",
+                "--viz_prototype_maps", "False"], tmp_path)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
     assert "unsupported" not in res.stdout
-    _check_artifacts(tmp_path / "runs" / "vfy")
+    assert "skipped" not in res.stdout
+    _check_artifacts(tmp_path / "runs" / "vfy", maps=False)
+
+
+def test_cli_pipnet_default_model_writes_artifacts(tmp_path):
+    """The recipe with the CLI's default ``--model pipnet`` (no count
+    flags; the softmax add-on whatever ``--activation`` says): the same
+    CSV, checkpoint roles and visualisations, prototype maps included."""
+    _generate_shapes(tmp_path)
+    count_only = {"--model": 1, "--max_count": 1, "--use_ste": 1,
+                  "--intermediate_layer": 1, "--tanh_loss_coeff": 1}
+    recipe, skip = [], 0
+    for a in RECIPE:
+        if skip:
+            skip -= 1
+        elif a in count_only:
+            skip = count_only[a]
+        else:
+            recipe.append(a)
+    res = _run(["-m", "count_pipnet_tpu_torch.main", *recipe,
+                "--disable_cuda", "--epochs", "2"], tmp_path)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "skipped" not in res.stdout
+    assert "Updated Gumbel-Softmax temperature" not in res.stdout
+    run = tmp_path / "runs" / "vfy"
+    assert "model: 'pipnet'" in (run / "metadata" / "args.txt").read_text()
+    _check_artifacts(run)
 
 
 def test_cli_needs_a_card_without_disable_cuda(tmp_path):
@@ -116,16 +157,23 @@ def test_parser_defaults_equal_the_jax_package():
 
 
 @pytest.mark.parametrize("flags,item", [
-    ([], "Queue 1 item 7"),                     # --model pipnet (default)
-    (["--mesh_shape", "4"], "Queue 1 item 5"),
-    (["--interpret"], "Queue 1 item 8"),
-    (["--intermediate_layer", "linear"], "Queue 1 item d"),
-    (["--net", "resnet50"], "Queue 1 item f"),
+    (["--mesh_shape", "4"], "Queue 1: Multi-GPU training"),
+    (["--interpret"], "Queue 1: The interpretability suite and tooling"),
+    (["--intermediate_layer", "linear"],
+     "Queue 1: Training with the four other intermediates"),
+    (["--net", "resnet50"], "Queue 1: ResNet backbones"),
 ])
 def test_unported_flags_raise(flags, item):
-    model = [] if not flags else ["--model", "count_pipnet"]
-    args = build_parser().parse_args(model + flags)
+    args = build_parser().parse_args(["--model", "count_pipnet"] + flags)
     with pytest.raises(NotImplementedError, match=item):
         check_ported(args)
     check_ported(argparse.Namespace(**dict(vars(build_parser().parse_args(
         ["--model", "count_pipnet"])))))
+
+
+@pytest.mark.parametrize("flags", [[], ["--intermediate_layer", "linear"]],
+                         ids=["default", "intermediate_unused"])
+def test_pipnet_is_ported(flags):
+    """The CLI's defaults (``--model pipnet``) pass the check; PIP-Net has
+    no intermediate layer, so ``--intermediate_layer`` does not stop it."""
+    check_ported(build_parser().parse_args(flags))
