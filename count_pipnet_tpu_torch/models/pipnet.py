@@ -12,8 +12,9 @@ Port of count_pipnet_tpu/models/pipnet.py.
 
 Outputs are ``(proto_features [B, H, W, P], pooled [B, P], logits)``.
 ``--fused_blocks``, ``--fused_dwconv`` and ``--fused_whole_blocks`` build
-the backbone on the kernel block routes (models/convnext.py). The ResNet
-backbones are not ported (ROADMAP Queue 1: ResNet backbones).
+a ConvNeXt backbone on the kernel block routes (models/convnext.py); the
+ResNet backbones (models/resnet.py) take none of them, as in the JAX
+package.
 """
 
 from typing import Optional
@@ -25,6 +26,9 @@ from ..ops.ste import ste_clamp, ste_round
 from .convnext import convnext_tiny_13_features, convnext_tiny_26_features
 from .heads import AddOn, NonNegLinear
 from .intermediates import make_intermediate
+from .resnet import (resnet18_features, resnet34_features,
+                     resnet50_features, resnet50_features_inat,
+                     resnet101_features, resnet152_features)
 
 __all__ = ["PIPNet", "CountPIPNet", "get_pipnet", "get_count_network",
            "build_backbone", "importance_per_class", "BACKBONE_BUILDERS"]
@@ -32,24 +36,27 @@ __all__ = ["PIPNet", "CountPIPNet", "get_pipnet", "get_count_network",
 BACKBONE_BUILDERS = {
     "convnext_tiny_26": convnext_tiny_26_features,
     "convnext_tiny_13": convnext_tiny_13_features,
+    "resnet18": resnet18_features,
+    "resnet34": resnet34_features,
+    "resnet50": resnet50_features,
+    "resnet50_inat": resnet50_features_inat,
+    "resnet101": resnet101_features,
+    "resnet152": resnet152_features,
 }
-_NOT_PORTED = ("resnet18", "resnet34", "resnet50", "resnet50_inat",
-               "resnet101", "resnet152")
 
 
 def build_backbone(net: str, use_mid_layers: bool = False,
                    num_stages: int = 2, fused_mlp: bool = False,
                    fused_whole_block: bool = False,
                    fused_dwconv: bool = False):
-    """Backbone factory (reference pipnet/pipnet.py:44-51)."""
-    if net in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backbone {net!r} is not ported to PyTorch yet (ROADMAP "
-            f"Queue 1: ResNet backbones)")
+    """Backbone factory (reference pipnet/pipnet.py:44-51); the block-route
+    flags and the mid-layer truncation apply to ConvNeXt only."""
     if net not in BACKBONE_BUILDERS:
         raise ValueError(
             f"Network '{net}' is not supported. Supported: "
-            f"{sorted(BACKBONE_BUILDERS) + sorted(_NOT_PORTED)}")
+            f"{sorted(BACKBONE_BUILDERS)}")
+    if not net.startswith("convnext"):
+        return BACKBONE_BUILDERS[net]()
     return BACKBONE_BUILDERS[net](
         num_stages=num_stages if use_mid_layers else 7, fused_mlp=fused_mlp,
         fused_whole_block=fused_whole_block, fused_dwconv=fused_dwconv)
@@ -171,8 +178,8 @@ def _backbone_of(args):
 
 
 def get_pipnet(num_classes: int, args):
-    """PIPNet factory (reference pipnet/pipnet.py:74-140) on the ConvNeXt
-    backbones. Returns (model, num_prototypes)."""
+    """PIPNet factory (reference pipnet/pipnet.py:74-140) on any backbone
+    of BACKBONE_BUILDERS. Returns (model, num_prototypes)."""
     backbone, num_features, num_prototypes = _backbone_of(args)
     model = PIPNet(num_classes=num_classes, num_prototypes=num_prototypes,
                    backbone=backbone, num_features=num_features,
@@ -187,7 +194,7 @@ def get_count_network(num_classes: int, args, max_count: int = 3,
     if not args.net.startswith("convnext"):
         raise ValueError(
             f"Network '{args.net}' is not supported. Supported networks: "
-            f"{sorted(BACKBONE_BUILDERS)}")
+            f"{[k for k in BACKBONE_BUILDERS if 'convnext' in k]}")
     backbone, num_features, num_prototypes = _backbone_of(args)
     model = CountPIPNet(
         num_classes=num_classes, num_prototypes=num_prototypes,

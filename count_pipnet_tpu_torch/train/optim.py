@@ -20,7 +20,8 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["label_params", "make_optimizer", "set_trainable", "cosine_lr",
-           "warm_restart_lr", "masks_of", "NET_LABELS", "CLASSIFIER_LABELS"]
+           "warm_restart_lr", "masks_of", "load_adamw_by_name",
+           "NET_LABELS", "CLASSIFIER_LABELS"]
 
 NET_LABELS = ("backbone", "to_freeze", "to_train", "add_on")
 CLASSIFIER_LABELS = ("cls_weight", "cls_bias", "intermediate")
@@ -44,6 +45,22 @@ def _convnext_label(key: str, use_mid_layers: bool, num_stages: int) -> str:
     return "backbone"
 
 
+def _resnet_label(key: str, net: str) -> str:
+    """Label of a ResNet backbone parameter (util/args.py:282-290):
+    resnet50 (and its iNat trunk) trains ``layer4.2``, freezes-then-trains
+    the rest of layer4 and layer3, gives layer2 the backbone rate and
+    never trains the stem and layer1; every other ResNet is all frozen."""
+    if "resnet50" not in net:
+        return "frozen"
+    if key.startswith("layer4.2."):
+        return "to_train"
+    if key.startswith(("layer4.", "layer3.")):
+        return "to_freeze"
+    if key.startswith("layer2."):
+        return "backbone"
+    return "frozen"
+
+
 def label_of(name: str, net: str, use_mid_layers: bool = False,
              num_stages: int = 2, train_intermediate: bool = True,
              bias: bool = False) -> str:
@@ -51,7 +68,7 @@ def label_of(name: str, net: str, use_mid_layers: bool = False,
     scope, _, rest = name.partition(".")
     if scope == "backbone":
         if "convnext" not in net:
-            return "frozen"
+            return _resnet_label(rest, net)
         return _convnext_label(rest, use_mid_layers, num_stages)
     if scope == "add_on":
         return "add_on"
@@ -90,6 +107,21 @@ def make_optimizer(model, labels: Dict[str, str], weight_decay: float = 0.0,
                            "weight_decay": wd, "label": label})
     return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=eps,
                              weight_decay=0.0)
+
+
+def load_adamw_by_name(optimizer, model, by_name: Dict[str, Dict]):
+    """Set the AdamW state of ``model``'s parameters from ``{name: {"step",
+    "exp_avg", "exp_avg_sq"}}`` (a JAX package checkpoint's, see
+    utils/checkpoint.py:from_jax_state); the moments go to each
+    parameter's device and dtype, the step stays a CPU float tensor as
+    AdamW keeps it."""
+    params = dict(model.named_parameters())
+    for name, st in by_name.items():
+        p = params[name]
+        optimizer.state[p] = {
+            "step": st["step"].float().cpu(),
+            "exp_avg": st["exp_avg"].to(p.device, p.dtype),
+            "exp_avg_sq": st["exp_avg_sq"].to(p.device, p.dtype)}
 
 
 def set_trainable(model, labels: Dict[str, str], masks: Dict[str, float]):

@@ -38,14 +38,15 @@ from ..config import save_args
 from ..data.device_augment import make_device_twoview_augment
 from ..models.pipnet import get_count_network, get_pipnet
 from ..utils.checkpoint import (CheckpointManager, find_shared_backbone,
-                                graft_state_dict, load_backbone_only)
+                                graft_pretrained, load_backbone_only)
 from ..utils.log import Log
 from .eval import class_prototype_weights, evaluate
-from .optim import (cosine_lr, label_params, make_optimizer, masks_of,
-                    set_trainable, warm_restart_lr)
+from .optim import (cosine_lr, label_params, load_adamw_by_name,
+                    make_optimizer, masks_of, set_trainable, warm_restart_lr)
 from .steps import autocast_for, train_step
 
-__all__ = ["run_pipnet", "Trainer", "check_ported", "LOG_COLUMNS"]
+__all__ = ["run_pipnet", "Trainer", "check_ported", "restore_initial_state",
+           "LOG_COLUMNS"]
 
 LOG_COLUMNS = (
     "test_top1_acc", "local_size_for_true_class",
@@ -63,17 +64,11 @@ def check_ported(args):
     """Raise ``NotImplementedError`` for a flag whose path the port does not
     carry yet, naming its ROADMAP Queue 1 item by title."""
     g = lambda k, d=False: getattr(args, k, d)  # noqa: E731
-    is_count = g("model", "pipnet") == "count_pipnet"
     missing = [
         (g("mesh_shape", -1) > 1,
          "--mesh_shape > 1 (ROADMAP Queue 1: Multi-GPU training)"),
         (g("interpret"), "--interpret (ROADMAP Queue 1: The "
          "interpretability suite and tooling)"),
-        (is_count and g("intermediate_layer", "onehot") != "onehot",
-         f"--intermediate_layer {g('intermediate_layer')} (ROADMAP Queue 1: "
-         "Training with the four other intermediates)"),
-        (not str(g("net", "")).startswith("convnext"),
-         f"--net {g('net')} (ROADMAP Queue 1: ResNet backbones)"),
     ]
     for bad, what in missing:
         if bad:
@@ -343,6 +338,48 @@ def _visualize(trainer, projectloader, num_classes, folder, args, what,
         print(f"({what} skipped: {e})", flush=True)
 
 
+def restore_initial_state(trainer, ckpt, args):
+    """Resume, shared backbone or pretrained discovery (reference
+    main.py:122-205), from the port's files or the JAX package's; resume
+    first, so an interrupted run continues where it stopped. Sets
+    ``args.epochs_pretrain`` to 0 when something was loaded. Returns
+    (start_epoch, resumed)."""
+    start_epoch, resumed = 1, False
+    if getattr(args, "resume_training", False):
+        res = ckpt.load_trained_checkpoint()
+        if res is not None:
+            state, meta = res
+            trainer.model.load_state_dict(state["model"])
+            if state.get("optimizer"):
+                trainer.optimizer.load_state_dict(state["optimizer"])
+            elif state.get("adamw_by_name"):  # a JAX package checkpoint
+                load_adamw_by_name(trainer.optimizer, trainer.model,
+                                   state["adamw_by_name"])
+            args.epochs_pretrain = 0
+            if meta.get("epoch") not in (None, "last"):
+                start_epoch = int(meta["epoch"]) + 1
+            if meta.get("tau") is not None:
+                trainer.update_temperature(meta["tau"])
+            resumed = True
+            print(f"Resuming training from epoch {start_epoch}", flush=True)
+    shared_loaded = False
+    if not resumed and getattr(args, "shared_pretrained_dir", ""):
+        cand = find_shared_backbone(args.shared_pretrained_dir)
+        if cand and load_backbone_only(cand, trainer.model)["success"]:
+            shared_loaded = True
+            args.epochs_pretrain = 0
+            print("Successfully loaded shared pretrained backbone",
+                  flush=True)
+    if not shared_loaded and not resumed:
+        res = ckpt.load_pretrained_checkpoint()
+        if res is not None:
+            graft_pretrained(trainer.model, res[0]["model"])
+            args.epochs_pretrain = 0
+            print("Loaded pretrained checkpoint from standard location",
+                  flush=True)
+    return start_epoch, resumed
+
+
 def run_pipnet(args, loaders=None):
     """Full training run (reference main.py:42-496). ``loaders``: the
     8-tuple of ``data.get_dataloaders`` (seven loaders and the class
@@ -363,39 +400,7 @@ def run_pipnet(args, loaders=None):
 
     ckpt = CheckpointManager(args)
     trainer = Trainer(args, num_classes, classes=classes)
-    start_epoch, resumed = 1, False
-
-    # resume / shared backbone / pretrained discovery (main.py:122-205);
-    # resume first, so an interrupted run continues where it stopped
-    if getattr(args, "resume_training", False):
-        res = ckpt.load_trained_checkpoint()
-        if res is not None:
-            state, meta = res
-            trainer.model.load_state_dict(state["model"])
-            if state.get("optimizer"):
-                trainer.optimizer.load_state_dict(state["optimizer"])
-            args.epochs_pretrain = 0
-            if meta.get("epoch") not in (None, "last"):
-                start_epoch = int(meta["epoch"]) + 1
-            if meta.get("tau") is not None:
-                trainer.update_temperature(meta["tau"])
-            resumed = True
-            print(f"Resuming training from epoch {start_epoch}", flush=True)
-    shared_loaded = False
-    if not resumed and getattr(args, "shared_pretrained_dir", ""):
-        cand = find_shared_backbone(args.shared_pretrained_dir)
-        if cand and load_backbone_only(cand, trainer.model)["success"]:
-            shared_loaded = True
-            args.epochs_pretrain = 0
-            print("Successfully loaded shared pretrained backbone",
-                  flush=True)
-    if not shared_loaded and not resumed:
-        res = ckpt.load_pretrained_checkpoint()
-        if res is not None:
-            graft_state_dict(trainer.model, res[0]["model"])
-            args.epochs_pretrain = 0
-            print("Loaded pretrained checkpoint from standard location",
-                  flush=True)
+    start_epoch, resumed = restore_initial_state(trainer, ckpt, args)
 
     trainer.probe_wshape(trainloader)
     log.create_log("log_epoch_overview", "epoch", *LOG_COLUMNS,

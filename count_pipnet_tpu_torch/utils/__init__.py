@@ -1,1 +1,2 @@
-"""Run logging and checkpoints of the port."""
+"""Run logging and checkpoints of the port (its own files and the JAX
+package's msgpack files)."""

@@ -15,8 +15,15 @@ util/checkpoint_manager.py, util/selective_loading.py):
 
 Format: ``torch.save`` of ``{"model": state_dict, "optimizer": state
 dict or {}}`` plus a JSON sidecar, each written to a temporary file and
-renamed. Reading the JAX package's msgpack files is ROADMAP Queue 1: The
-flax-msgpack checkpoint loader.
+renamed. Every loader also reads the JAX package's files: flax msgpack of
+``{"params", "batch_stats", "opt_state"}`` with the same sidecar
+(count_pipnet_tpu/utils/checkpoint.py), told apart by the first bytes (a
+``torch.save`` file is a zip) and carried over by :func:`from_jax_state`.
+
+As in the JAX package, the pretrained and shared-backbone routes graft
+parameters only (a BatchNorm's running statistics keep their fresh
+values there); a resume restores the running statistics and the AdamW
+state too.
 """
 
 import hashlib
@@ -26,8 +33,14 @@ import shutil
 
 import torch
 
+from ..models.convert import from_jax_params, jax_path
+from .msgpack import unpackb
+
 __all__ = ["CheckpointManager", "config_hash", "load_backbone_only",
-           "find_shared_backbone", "graft_state_dict"]
+           "find_shared_backbone", "graft_state_dict", "graft_pretrained",
+           "from_jax_state"]
+
+_ZIP_MAGIC = b"PK\x03\x04"
 
 
 def config_hash(args) -> str:
@@ -73,16 +86,46 @@ def _load_meta(path):
         return None
 
 
+def from_jax_state(tree):
+    """A JAX package checkpoint ``{"params", "batch_stats", "opt_state"}``
+    -> the port's ``{"model": state dict, "optimizer": {},
+    "adamw_by_name": {name: {"step", "exp_avg", "exp_avg_sq"}}}``. The
+    JAX AdamW state (count_pipnet_tpu/train/optim.py: adamw_init) holds
+    ``mu`` / ``nu`` trees shaped as the parameters and a per-leaf ``step``;
+    a leaf that never stepped gets no entry, as a PyTorch parameter that
+    never had a gradient has no optimizer state."""
+    model = from_jax_params(tree["params"], tree.get("batch_stats") or {})
+    by_name = {}
+    opt = tree.get("opt_state") or {}
+    if opt:
+        mu, nu = from_jax_params(opt["mu"]), from_jax_params(opt["nu"])
+        for name in mu:
+            step = opt["step"]
+            for k in jax_path(name):
+                step = step[k]
+            if int(step) > 0:
+                by_name[name] = {"step": torch.tensor(float(step)),
+                                 "exp_avg": mu[name],
+                                 "exp_avg_sq": nu[name]}
+    return {"model": model, "optimizer": {}, "adamw_by_name": by_name}
+
+
 def _load_file(path):
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    """(state, meta) of a checkpoint in either format."""
+    with open(path, "rb") as f:
+        jax_file = f.read(4) != _ZIP_MAGIC
+        f.seek(0)
+        state = (from_jax_state(unpackb(f.read())) if jax_file else
+                 torch.load(f, map_location="cpu", weights_only=True))
     return state, _load_meta(path) or {}
 
 
 def graft_state_dict(model, saved, prefixes=None):
-    """Copy the entries of ``saved`` whose key exists in ``model`` with the
-    same shape (and, with ``prefixes``, starts with one of them); keep the
-    model's own values elsewhere. Returns (loaded, skipped) counts."""
-    own = model.state_dict()
+    """Copy the entries of ``saved`` whose key names a parameter of
+    ``model`` with the same shape (and, with ``prefixes``, starts with one
+    of them); keep the model's own values elsewhere, its buffers (running
+    statistics) included. Returns (loaded, skipped) counts."""
+    own = dict(model.named_parameters())
     new, loaded, skipped = {}, 0, 0
     for key, value in own.items():
         if prefixes is not None and not key.startswith(tuple(prefixes)):
@@ -94,6 +137,18 @@ def graft_state_dict(model, saved, prefixes=None):
         else:
             skipped += 1
     model.load_state_dict(new, strict=False)
+    return loaded, skipped
+
+
+def graft_pretrained(model, saved):
+    """graft_state_dict of a whole pretrained model, with the JAX package's
+    line when some parameters keep their fresh init (e.g. an onehot
+    checkpoint loaded into a model with another intermediate layer)."""
+    loaded, skipped = graft_state_dict(model, saved)
+    if skipped:
+        print(f"Partial checkpoint restore: {loaded} leaves loaded, "
+              f"{skipped} kept at fresh init (tree/shape mismatch — e.g. "
+              f"different intermediate layer)", flush=True)
     return loaded, skipped
 
 

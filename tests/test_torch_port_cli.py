@@ -4,10 +4,12 @@ port's generator writes the 15-column CSV, the checkpoint roles with
 their sidecars and the prototype visualisations (after pretraining and of
 the best model, its prototype maps too), and ``--resume_training``
 continues the run; the same recipe on the whole-block route with the
-device augmentation, on the depthwise + fused-MLP route, and with the
-default ``--model pipnet``; without a CUDA device and without
-``--disable_cuda`` it exits non-zero; its flags and defaults are the JAX
-package's; flags whose path is not ported raise."""
+device augmentation, on the depthwise + fused-MLP route, with the
+default ``--model pipnet``, with the bilinear intermediate and on a
+resnet18 PIP-Net; without a CUDA device and without ``--disable_cuda`` it
+exits non-zero; its flags and defaults are the JAX package's; flags whose
+path is not ported raise, and a Count-PIPNet on a ResNet raises as in the
+JAX package."""
 
 import argparse
 import csv
@@ -144,6 +146,46 @@ def test_cli_pipnet_default_model_writes_artifacts(tmp_path):
     _check_artifacts(run)
 
 
+def _without(recipe, flags):
+    """``recipe`` without ``flags`` (each with its one value)."""
+    out, skip = [], False
+    for a in recipe:
+        if skip:
+            skip = False
+        elif a in flags:
+            skip = True
+        else:
+            out.append(a)
+    return out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--intermediate_layer", "bilinear"],
+    ["--net", "resnet18"],
+], ids=["count_pipnet_bilinear", "pipnet_resnet18"])
+def test_cli_intermediates_and_resnets_write_artifacts(tmp_path, flags):
+    """A bilinear Count-PIPNet and a resnet18 PIP-Net (the default
+    ``--model pipnet`` without the count flags) at 64x64 write the CSV,
+    the checkpoint roles and the top-k grids (the prototype maps off)."""
+    _generate_shapes(tmp_path)
+    recipe = [a for a in RECIPE if a != "--fused_blocks"]
+    if flags[0] == "--net":
+        recipe = _without(recipe, {"--model", "--max_count", "--use_ste",
+                                   "--intermediate_layer", "--net",
+                                   "--tanh_loss_coeff"})
+    else:
+        recipe = _without(recipe, {"--intermediate_layer"})
+    res = _run(["-m", "count_pipnet_tpu_torch.main", *recipe, *flags,
+                "--disable_cuda", "--epochs", "2",
+                "--viz_prototype_maps", "False"], tmp_path)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "skipped" not in res.stdout
+    run = tmp_path / "runs" / "vfy"
+    args_txt = (run / "metadata" / "args.txt").read_text()
+    assert f"{flags[0][2:]}: '{flags[1]}'" in args_txt
+    _check_artifacts(run, maps=False)
+
+
 def test_cli_needs_a_card_without_disable_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -159,9 +201,6 @@ def test_parser_defaults_equal_the_jax_package():
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_shape", "4"], "Queue 1: Multi-GPU training"),
     (["--interpret"], "Queue 1: The interpretability suite and tooling"),
-    (["--intermediate_layer", "linear"],
-     "Queue 1: Training with the four other intermediates"),
-    (["--net", "resnet50"], "Queue 1: ResNet backbones"),
 ])
 def test_unported_flags_raise(flags, item):
     args = build_parser().parse_args(["--model", "count_pipnet"] + flags)
@@ -169,6 +208,25 @@ def test_unported_flags_raise(flags, item):
         check_ported(args)
     check_ported(argparse.Namespace(**dict(vars(build_parser().parse_args(
         ["--model", "count_pipnet"])))))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "count_pipnet", "--intermediate_layer", "linear"],
+    ["--net", "resnet50"],
+], ids=["count_pipnet_linear", "pipnet_resnet50"])
+def test_ported_flags_pass(flags):
+    """The other intermediates and the ResNet backbones are ported."""
+    check_ported(build_parser().parse_args(flags))
+
+
+def test_count_pipnet_on_a_resnet_raises():
+    """As in the JAX package, a Count-PIPNet is ConvNeXt only."""
+    from count_pipnet_tpu_torch.train.trainer import Trainer
+    args = build_parser().parse_args(["--model", "count_pipnet", "--net",
+                                      "resnet18", "--disable_cuda"])
+    with pytest.raises(ValueError, match=r"Supported networks: "
+                       r"\['convnext_tiny_26', 'convnext_tiny_13'\]"):
+        Trainer(args, 3)
 
 
 @pytest.mark.parametrize("flags", [[], ["--intermediate_layer", "linear"]],

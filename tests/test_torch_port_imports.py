@@ -1,6 +1,7 @@
 """Import and packaging guard of the PyTorch port: every module of
-count_pipnet_tpu_torch imports with JAX made unimportable, loads neither
-flax nor the JAX package, and the CUDA sources ship with the package."""
+count_pipnet_tpu_torch imports with JAX, msgpack and sklearn made
+unimportable (the card's machine has none of them), loads neither flax
+nor the JAX package, and the CUDA sources ship with the package."""
 
 import pathlib
 import subprocess
@@ -13,13 +14,15 @@ PKG = ROOT / "count_pipnet_tpu_torch"
 
 _PROBE = """
 import pkgutil, sys
-sys.modules["jax"] = None
+for blocked in ("jax", "msgpack", "sklearn"):
+    sys.modules[blocked] = None
 import count_pipnet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     __import__(name)
 bad = [m for m in sys.modules
-       if m.split(".")[0] in ("jax", "flax", "count_pipnet_tpu")
+       if m.split(".")[0] in ("jax", "flax", "count_pipnet_tpu", "msgpack",
+                              "sklearn")
        and sys.modules[m] is not None]
 print(len(names), bad)
 assert not bad, bad

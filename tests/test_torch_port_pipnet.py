@@ -138,9 +138,10 @@ def test_get_pipnet_factory():
     assert model.classification.weight.shape == (9, 16)
     Args.num_features = 0
     assert get_pipnet(9, Args)[1] == 192
-    Args.net = "resnet50"
-    with pytest.raises(NotImplementedError, match="ResNet backbones"):
-        get_pipnet(9, Args)
+    Args.net = "resnet50"  # a ResNet: out_channels prototypes (2048)
+    with torch.device("meta"):
+        model, p = get_pipnet(9, Args)
+    assert p == 2048 and model.classification.weight.shape == (9, 2048)
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -84,14 +84,16 @@ def test_label_groups_match_label_params(use_mid_layers, num_stages):
     assert set(ours.values()) == want
 
 
-def _models(fused, activation="gumbel_softmax", **routes):
+def _models(fused, activation="gumbel_softmax", intermediate="onehot",
+            **routes):
     """The flax and the port's model on the same parameters; ``fused``
     sets ``fused_mlp``, ``routes`` the other block-route flags."""
     jm = JCountPIPNet(
         num_classes=NC, num_prototypes=P, max_count=M,
         backbone=JFeatures(stage_settings=STAGES, stride_threshold=40,
                            num_stages=NUM_STAGES, fused_mlp=fused, **routes),
-        num_features=P, activation=activation)
+        num_features=P, activation=activation,
+        intermediate_type=intermediate)
     params = jax.device_get(jm.init(
         {"params": jax.random.PRNGKey(5), "gumbel": jax.random.PRNGKey(1)},
         jnp.zeros((1, 64, 64, 3)))["params"])
@@ -106,7 +108,8 @@ def _models(fused, activation="gumbel_softmax", **routes):
     tm = CountPIPNet(num_classes=NC, num_prototypes=P, max_count=M,
                      backbone=ConvNeXtFeatures(STAGES, 40, NUM_STAGES,
                                                fused_mlp=fused, **routes),
-                     num_features=P, activation=activation)
+                     num_features=P, activation=activation,
+                     intermediate_type=intermediate)
     tm.load_state_dict(from_jax_params(params))
     return jm, params, tm
 
@@ -172,18 +175,25 @@ def test_trajectory_new_routes(monkeypatch, route):
                       *_models(False, **flags))
 
 
-def _check_trajectory(monkeypatch, fused, jm, params, tm):
-    """Six steps of both train steps; ``fused``: the loose tolerances."""
+def _check_trajectory(monkeypatch, fused, jm, params, tm,
+                      train_intermediate=True, move_norm=None):
+    """Six steps of both train steps; ``fused``: the loose tolerances;
+    ``train_intermediate``: the --train_intermediate flag of both label
+    rules; ``move_norm``: instead of the per-entry bound of the eager
+    route, each final tensor's difference norm within ``move_norm`` of
+    its move's norm. Returns the port's initial state dict."""
     noise, masks = _noise_and_masks(tm, 21)
     _patch(monkeypatch, noise, masks)
     labels_j = j_label_params(params, "convnext_tiny_26",
-                              use_mid_layers=True, num_stages=NUM_STAGES)
+                              use_mid_layers=True, num_stages=NUM_STAGES,
+                              train_intermediate=train_intermediate)
     step_j = make_train_step(jm, labels_j, is_count_pipnet=True,
                              enforce_weight_sparsity=True,
                              tanh_loss_coeff=COEFF, donate=False)
     opt_j = adamw_init(params)
     labels = label_params(tm, "convnext_tiny_26", use_mid_layers=True,
-                          num_stages=NUM_STAGES)
+                          num_stages=NUM_STAGES,
+                          train_intermediate=train_intermediate)
     opt = make_optimizer(tm, labels)
     init = {k: v.clone() for k, v in tm.state_dict().items()}
     noise_t = torch.from_numpy(noise)
@@ -229,10 +239,13 @@ def _check_trajectory(monkeypatch, fused, jm, params, tm):
         moved = leaf - np.asarray(_lookup(params, names))
         if not moved.any():
             np.testing.assert_array_equal(diff, 0.0, err_msg=str(names))
-        elif fused:
-            assert np.linalg.norm(diff) <= 0.1 * np.linalg.norm(moved), names
+        elif fused or move_norm:
+            limit = move_norm or 0.1
+            assert np.linalg.norm(diff) <= limit * np.linalg.norm(moved), \
+                names
         else:
             assert np.abs(diff).max() <= 0.01 * np.abs(moved).max(), names
+    return init
 
 
 def test_evaluate_matches_jax(monkeypatch):
