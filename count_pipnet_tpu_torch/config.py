@@ -15,7 +15,8 @@ import argparse
 import os
 import pickle
 
-__all__ = ["build_parser", "get_args", "save_args", "DEFAULTS"]
+__all__ = ["build_parser", "get_args", "args_from_yaml", "save_args",
+           "DEFAULTS"]
 
 
 def _bool(v):
@@ -163,8 +164,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="plot per-class prototype activation histograms during the "
              "best-model visualization")
     add("--interpret", action="store_true",
-        help="the interpretability suite after training: not ported yet "
-             "(ROADMAP Queue 1: The interpretability suite and tooling)")
+        help="after training, run the interpretability suite on the "
+             "finished run: prediction explanations (vis_pred) and "
+             "activation histograms; saliency attribution stays available "
+             "via count_pipnet_tpu_torch.interpret.interpret_idg")
     add("--dtype", type=str, default="bfloat16",
         choices=["bfloat16", "float32"],
         help="compute dtype: bfloat16 = torch.autocast over the forward "
@@ -210,6 +213,17 @@ def get_args(argv=None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     if len(args.log_dir.split("/")) > 2 and not os.path.exists(args.log_dir):
         os.makedirs(args.log_dir, exist_ok=True)
+    return args
+
+
+def args_from_yaml(config_path, **overrides) -> argparse.Namespace:
+    """Build a namespace straight from a YAML file plus overrides — the
+    sweep-runner path (reference run_multiple_configs.py:121-179)."""
+    parser = build_parser()
+    _apply_yaml_defaults(parser, config_path)
+    args = parser.parse_args([])
+    for k, v in overrides.items():
+        setattr(args, k, v)
     return args
 
 

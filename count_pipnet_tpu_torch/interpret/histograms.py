@@ -119,7 +119,7 @@ def _summary_heatmap(acts, labels, num_classes, keep, out_dir,
 
 def plot_prototype_activations_by_class(
         trainer, loader, num_classes, out_dir, args, *,
-        return_type="mean_values",
+        histogram_type="per-class", return_type="mean_values",
         filter_outlier_prototypes=True, max_images=MAX_IMAGES,
         class_names=None, export_pdf=False):
     """Per-prototype class-conditional histograms + heatmap + zero report.

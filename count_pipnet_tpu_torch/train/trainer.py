@@ -15,7 +15,8 @@ Port of count_pipnet_tpu/train/trainer.py. Phase structure:
   at the last; Count-PIPNet without STE trains the classifier only;
   per-epoch evaluation, CSV row and checkpoints; classifier LR on warm
   restarts (T_0 = 5 or 10, eta_min 1e-3) with fractional epoch stepping;
-  the best checkpoint's prototypes visualised at the end.
+  the best checkpoint's prototypes visualised at the end; with
+  ``--interpret`` the interpretability suite on that model (``_interpret``).
 
 ``--model count_pipnet`` builds a Count-PIPNet, any other value the
 PIP-Net (models/pipnet.py), as in the JAX package.
@@ -67,8 +68,6 @@ def check_ported(args):
     missing = [
         (g("mesh_shape", -1) > 1,
          "--mesh_shape > 1 (ROADMAP Queue 1: Multi-GPU training)"),
-        (g("interpret"), "--interpret (ROADMAP Queue 1: The "
-         "interpretability suite and tooling)"),
     ]
     for bad, what in missing:
         if bad:
@@ -338,6 +337,57 @@ def _visualize(trainer, projectloader, num_classes, folder, args, what,
         print(f"({what} skipped: {e})", flush=True)
 
 
+def _interpret(trainer, projectloader, classes, args, log):
+    """``--interpret``: the interpretability suite on the finished model
+    (JAX trainer, its train/trainer.py:780-830): prediction explanations
+    of the recipe's test images, activation histograms, IDG attributions
+    of one projection image a class through the live model, and CUB part
+    purity when the part annotations are on disk. Each part that fails
+    prints why and the run carries on."""
+    num_classes = len(classes)
+    try:
+        from ..data.registry import DATASET_RECIPES
+        from ..interpret.visualize_prediction import vis_pred
+        _, (_tr, _pr, test_d, *_rest) = DATASET_RECIPES[args.dataset]
+        if test_d is not None and os.path.isdir(test_d):
+            vis_pred(trainer, test_d, classes, args)
+    except Exception as e:
+        print(f"(prediction explanations skipped: {e})", flush=True)
+    try:
+        from ..interpret.histograms import \
+            plot_prototype_activations_by_class
+        plot_prototype_activations_by_class(
+            trainer, projectloader, num_classes,
+            os.path.join(args.log_dir, "activation_histograms"), args,
+            class_names=classes)
+    except Exception as e:
+        print(f"(activation histograms skipped: {e})", flush=True)
+    try:
+        from ..interpret.interpret_idg import interpret
+        interpret({"run_dir": args.log_dir,
+                   "images_per_class": getattr(
+                       args, "interpret_images_per_class", 1),
+                   "method": getattr(args, "interpret_method", "IDG")},
+                  model=trainer.model, args=args)
+    except Exception as e:
+        print(f"(saliency attribution skipped: {e})", flush=True)
+    try:
+        cub_root = "data/CUB_200_2011"
+        parts_loc = os.path.join(cub_root, "parts", "part_locs.txt")
+        parts_name = os.path.join(cub_root, "parts", "parts.txt")
+        imgs_id = os.path.join(cub_root, "images.txt")
+        if (str(getattr(args, "dataset", "")).startswith("CUB")
+                and all(os.path.exists(p) for p in
+                        (parts_loc, parts_name, imgs_id))):
+            from ..interpret.eval_cub_csv import (
+                eval_prototypes_cub_parts_csv, get_topk_cub)
+            csvfile = get_topk_cub(trainer, projectloader, 10, "best", args)
+            eval_prototypes_cub_parts_csv(csvfile, parts_loc, parts_name,
+                                          imgs_id, "best", args, log)
+    except Exception as e:
+        print(f"(CUB part purity skipped: {e})", flush=True)
+
+
 def restore_initial_state(trainer, ckpt, args):
     """Resume, shared backbone or pretrained discovery (reference
     main.py:122-205), from the port's files or the JAX package's; resume
@@ -538,5 +588,7 @@ def run_pipnet(args, loaders=None):
         print("Failed to load best model for prototype visualization",
               flush=True)
     _print_scoring_sheet(trainer, classes)
+    if getattr(args, "interpret", False):
+        _interpret(trainer, projectloader, classes, args, log)
     print("Done!", flush=True)
     return trainer

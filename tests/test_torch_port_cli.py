@@ -6,16 +6,18 @@ the best model, its prototype maps too), and ``--resume_training``
 continues the run; the same recipe on the whole-block route with the
 device augmentation, on the depthwise + fused-MLP route, with the
 default ``--model pipnet``, with the bilinear intermediate and on a
-resnet18 PIP-Net; without a CUDA device and without ``--disable_cuda`` it
-exits non-zero; its flags and defaults are the JAX package's; flags whose
-path is not ported raise, and a Count-PIPNet on a ResNet raises as in the
-JAX package."""
+resnet18 PIP-Net; with ``--interpret`` it writes the interpretability
+suite's artifacts; without a CUDA device and without ``--disable_cuda``
+it exits non-zero; its flags and defaults are the JAX package's; flags
+whose path is not ported raise, and a Count-PIPNet on a ResNet raises as
+in the JAX package."""
 
 import argparse
 import csv
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -146,6 +148,49 @@ def test_cli_pipnet_default_model_writes_artifacts(tmp_path):
     _check_artifacts(run)
 
 
+def test_cli_interpret_writes_the_suite(tmp_path):
+    """The recipe with ``--interpret``: after the scoring sheet, the
+    prediction explanations of the test images under
+    visualization_results/, the activation histograms, one IDG overlay a
+    class under idg_attributions/; nothing skipped. At 32x32 with 2
+    prototypes, one main epoch and without ``--fused_blocks`` (whose plain
+    backward on the CPU would double the time; tests/
+    test_torch_port_saliency.py holds that route's input gradient against
+    JAX), so that the run and its attributions (128 steps in batches of
+    32 for every active prototype of 9 images) stay short."""
+    _generate_shapes(tmp_path)
+    recipe = [a for a in _without(RECIPE, {"--image_size", "--num_features"})
+              if a != "--fused_blocks"]
+    res = _run(["-m", "count_pipnet_tpu_torch.main", *recipe,
+                "--image_size", "32", "--num_features", "2",
+                "--disable_cuda", "--epochs", "1", "--interpret",
+                "--viz_prototype_maps", "False"], tmp_path)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert "skipped" not in res.stdout
+    run = tmp_path / "runs" / "vfy"
+    out = (run / "out.txt").read_text()
+    classes = sorted(p.name for p in (
+        tmp_path / "data/geometric_shapes/dataset/test").iterdir())
+    for c, name in enumerate(classes):
+        assert f"Class {c} ({name}): has " in out
+    assert out.index("relevant prototypes") < out.index(
+        "Prediction explanations saved") < out.index(
+        "Attribution overlays saved")
+    overlays = sorted(p.name for p in (run / "idg_attributions").iterdir())
+    assert len(overlays) == len(classes)
+    for o, c in zip(overlays, classes):
+        assert o.startswith(c + "_") and o.endswith("_IDG.png"), o
+    active = [int(n) for n in re.findall(r"attributed .*: (\d+) active",
+                                         out)]
+    assert len(active) == len(classes) and sum(active) > 0, active
+    explained = run / "visualization_results"
+    assert sorted(p.name for p in explained.iterdir()) == sorted(
+        p.stem for p in (tmp_path / "data/geometric_shapes/dataset/test")
+        .rglob("*.png"))
+    assert list(explained.glob("*/0_*_output*/mul*_p*_sim*_w*_rect.png"))
+    assert (run / "activation_histograms" / "summary_heatmap.png").is_file()
+
+
 def _without(recipe, flags):
     """``recipe`` without ``flags`` (each with its one value)."""
     out, skip = [], False
@@ -200,7 +245,6 @@ def test_parser_defaults_equal_the_jax_package():
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_shape", "4"], "Queue 1: Multi-GPU training"),
-    (["--interpret"], "Queue 1: The interpretability suite and tooling"),
 ])
 def test_unported_flags_raise(flags, item):
     args = build_parser().parse_args(["--model", "count_pipnet"] + flags)
@@ -213,9 +257,11 @@ def test_unported_flags_raise(flags, item):
 @pytest.mark.parametrize("flags", [
     ["--model", "count_pipnet", "--intermediate_layer", "linear"],
     ["--net", "resnet50"],
-], ids=["count_pipnet_linear", "pipnet_resnet50"])
+    ["--model", "count_pipnet", "--interpret"],
+], ids=["count_pipnet_linear", "pipnet_resnet50", "interpret"])
 def test_ported_flags_pass(flags):
-    """The other intermediates and the ResNet backbones are ported."""
+    """The other intermediates, the ResNet backbones and the
+    interpretability suite are ported."""
     check_ported(build_parser().parse_args(flags))
 
 

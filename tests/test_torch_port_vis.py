@@ -205,3 +205,31 @@ def test_vizualize_network_matches_jax(monkeypatch, tmp_path, projectloader,
     assert "grid_topk_all.png" in files
     assert any(f.startswith("feature_maps/prototype_6/") for f in files)
     assert ("histograms/histograms.html" in files) == hist
+
+
+def test_histograms_accept_histogram_type(tmp_path, projectloader):
+    """``plot_prototype_activations_by_class`` takes the JAX signature's
+    ``histogram_type="per-class"`` (unused on both sides): the same
+    per-class means and the same files as the JAX call with it. Two
+    prototypes pass the importance filter, so two histograms a side."""
+    jm, params, tm = _family("pipnet", keep=(1, 6))
+    kw = dict(histogram_type="per-class", max_images=N)
+    want = jhist.plot_prototype_activations_by_class(
+        types.SimpleNamespace(model=jm, params=params, batch_stats={},
+                              tau=1.0), projectloader, NC,
+        str(tmp_path / "jax"), None, **kw)
+    got = histograms.plot_prototype_activations_by_class(
+        types.SimpleNamespace(model=tm, tau=1.0, dtype="float32"),
+        projectloader, NC, str(tmp_path / "port"), None, **kw)
+    def flat(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: v for key in tree
+                    for k, v in flat(tree[key], path + (key,)).items()}
+        return {path: float(tree)}
+
+    got, want = flat(got), flat(want)
+    assert want and got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=str(k))
+    assert _tree(tmp_path / "port") == _tree(tmp_path / "jax")
