@@ -12,8 +12,11 @@ Count-PIPNet or a PIP-Net (``python -m count_pipnet_tpu_torch.main``,
 ``train/``), with the flagship configs' routes on the hand-written kernels
 (``--fused_blocks``, ``--fused_whole_blocks``, ``--fused_dwconv``), the
 two views made on the device (``--device_augment``,
-``--device_geometric``), the interpretability suite (``interpret/``,
-``--interpret``), the sweep runner (``run_multiple_configs``), the
-notebooks that read runs (``notebooks/``) and the synthetic dataset
-generators (``data/generate_*.py``); ROADMAP.md lists the rest.
+``--device_geometric``), data parallelism over several devices
+(``parallel/``: ``--mesh_shape``, sharded serving, ``dryrun.py``), the
+native batch assembler (``native/``), the interpretability suite
+(``interpret/``, ``--interpret``), the sweep runner
+(``run_multiple_configs``), the notebooks that read runs
+(``notebooks/``) and the synthetic dataset generators
+(``data/generate_*.py``); ROADMAP.md lists what is left.
 """

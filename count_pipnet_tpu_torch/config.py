@@ -5,9 +5,10 @@
   unknown YAML keys print a warning (PyYAML is imported only then);
 * ``save_args`` writes ``args.txt`` (quoted strings) and a pickle.
 
-Flags whose path the port does not carry yet raise ``NotImplementedError``
-when training starts (train/trainer.py:check_ported), naming their ROADMAP
-Queue 1 item by its title. ``--disable_cuda`` selects the CPU; without it the CLI needs a CUDA
+A flag whose path the port does not carry would raise
+``NotImplementedError`` when training starts (train/trainer.py:
+check_ported), naming its ROADMAP Queue 1 item by its title; none is left.
+``--disable_cuda`` selects the CPU; without it the CLI needs a CUDA
 device.
 """
 
@@ -173,8 +174,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="compute dtype: bfloat16 = torch.autocast over the forward "
              "with f32 parameters")
     add("--mesh_shape", type=int, default=-1,
-        help="data-parallel device count; the port runs on one device "
-             "(-1 or 1; more is ROADMAP Queue 1: Multi-GPU training)")
+        help="data-parallel device count: N > 1 runs N ranks (spawned "
+             "by main.py, one a CUDA device or gloo CPU ranks with "
+             "--disable_cuda; under torchrun -1 or the world size)")
     add("--profile_dir", type=str, default="",
         help="when set, write a torch.profiler trace of the first main "
              "epoch into this dir")

@@ -26,7 +26,10 @@ The random draws are split from the arithmetic: ``draw_view`` /
 ``draw_geo`` take an explicit ``torch.Generator`` and return the random
 variates of a batch; ``apply_view`` / ``apply_geo`` are deterministic
 functions of an image batch and those draws (the JAX package's
-``_one_view`` and ``_shared_geo`` once their keys are drawn).
+``_one_view`` and ``_shared_geo`` once their keys are drawn). In a
+data-parallel world the draws are made for the world batch and each rank
+applies its rows of them to its own images (``shard``), so the views equal
+the one-process views of the joined batch.
 """
 
 import math
@@ -202,21 +205,31 @@ def apply_geo(img, draws, cfg: DeviceAugmentConfig):
 
 
 def make_device_twoview_augment(cfg: DeviceAugmentConfig):
-    """``augment(generator, batch) -> (view1, view2)``: the device-side
-    transform2 applied twice with independent draws from ``generator``
-    (on the batch's device), after the shared transform1 when
-    ``cfg.geo``. ``batch`` [B, H, W, 3] is float in [0, 1] or uint8 (the
-    ``ToUint8Array`` transport, exactly ToArray's value once divided by
-    255)."""
+    """``augment(generator, batch, shard=None) -> (view1, view2)``: the
+    device-side transform2 applied twice with independent draws from
+    ``generator`` (on the batch's device), after the shared transform1
+    when ``cfg.geo``. ``batch`` [B, H, W, 3] is float in [0, 1] or uint8
+    (the ``ToUint8Array`` transport, exactly ToArray's value once divided
+    by 255). ``shard`` (parallel/mesh.py: BatchShard): ``batch`` is a
+    rank's rows of a world batch; the draws are the world's, cut to those
+    rows."""
 
-    def augment(generator, batch):
+    def augment(generator, batch, shard=None):
         if not batch.is_floating_point():
             batch = batch.float() / 255.0
+        def draw(fn, shape):
+            # the draws of a batch of ``shape``, or of the world's batch
+            # cut to this rank's rows
+            if shard is None:
+                return fn(generator, shape, cfg)
+            d = fn(generator, shard.world_shape(shape), cfg)
+            return {k: shard.take(v) for k, v in d.items()}
+
         if cfg.geo:
-            batch = apply_geo(batch, draw_geo(generator, batch.shape[0],
-                                              cfg), cfg)
-        v1 = apply_view(batch, draw_view(generator, batch.shape, cfg), cfg)
-        v2 = apply_view(batch, draw_view(generator, batch.shape, cfg), cfg)
+            batch = apply_geo(batch, draw(
+                lambda g, s, c: draw_geo(g, s[0], c), batch.shape), cfg)
+        v1 = apply_view(batch, draw(draw_view, batch.shape), cfg)
+        v2 = apply_view(batch, draw(draw_view, batch.shape), cfg)
         return v1, v2
 
     return augment

@@ -1,7 +1,8 @@
 """Threaded, prefetching host data loader producing NHWC numpy batches.
 
 The port's copy of count_pipnet_tpu/data/loader.py (framework-free host
-code), without the JAX package's native batch assembler.
+code); the batch stacking runs through the port's own C++ assembler
+(native/) where it builds, else numpy.
 
 Replaces torch DataLoader (reference util/data.py:141-214). Design:
 
@@ -15,7 +16,10 @@ Replaces torch DataLoader (reference util/data.py:141-214). Design:
   overlaps device compute;
 * optional WeightedRandomSampler semantics for ``--weighted_loss``
   (util/data.py:126-136): inverse-class-frequency sampling with
-  replacement.
+  replacement;
+* in a data-parallel world (``process_index`` / ``process_count``) every
+  rank draws the same epoch permutation and loads only its slice of each
+  global batch (``host_local``).
 """
 
 import random
@@ -25,6 +29,8 @@ from queue import Queue
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
+
+from ..native import stack_batch as _native_stack
 
 __all__ = ["DataLoader", "make_weighted_sample_weights"]
 
@@ -38,12 +44,17 @@ def make_weighted_sample_weights(targets: Sequence[int]) -> np.ndarray:
 
 
 def _stack(items):
-    """Stack a list of per-item tuples into a tuple of batched arrays."""
+    """Stack a list of per-item tuples into a tuple of batched arrays
+    (float32 images through the C++ parallel memcpy of native/)."""
     out = []
     for f in range(len(items[0])):
         field = [it[f] for it in items]
-        out.append(np.stack(field) if isinstance(field[0], np.ndarray)
-                   else np.asarray(field))
+        if not isinstance(field[0], np.ndarray):
+            out.append(np.asarray(field))
+        elif field[0].dtype == np.float32 and field[0].ndim >= 2:
+            out.append(_native_stack(field))
+        else:
+            out.append(np.stack(field))
     return tuple(out)
 
 
@@ -51,7 +62,8 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8,
                  seed: int = 0, sample_weights: Optional[np.ndarray] = None,
-                 prefetch_batches: int = 2):
+                 prefetch_batches: int = 2, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -61,6 +73,16 @@ class DataLoader:
         self.sample_weights = sample_weights
         self.prefetch_batches = prefetch_batches
         self.epoch = 0
+        # a data-parallel world: the epoch permutation is keyed only by
+        # (seed, epoch), so every rank decodes only its indices[lo:hi]
+        # slice of each global batch
+        self.process_index = process_index
+        self.process_count = process_count
+        self.host_local = process_count > 1
+        if self.host_local and batch_size % process_count:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by "
+                f"{process_count} processes")
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -96,6 +118,15 @@ class DataLoader:
             chunk = indices[start:start + self.batch_size]
             if len(chunk) < self.batch_size and self.drop_last:
                 continue
+            if self.host_local:
+                if len(chunk) % self.process_count:
+                    raise ValueError(
+                        f"ragged batch of {len(chunk)} not divisible by "
+                        f"{self.process_count} processes (use "
+                        f"drop_last=True for host-local loaders)")
+                per = len(chunk) // self.process_count
+                chunk = chunk[self.process_index * per:
+                              (self.process_index + 1) * per]
             batches.append(chunk)
 
         if not batches:

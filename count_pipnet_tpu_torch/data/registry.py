@@ -3,10 +3,11 @@
 
 The port's copy of count_pipnet_tpu/data/registry.py, with the
 device-side augmentation (``--device_augment``, ``--device_geometric``:
-data/device_augment.py). Left out: the multi-host loader slices (ROADMAP
-Queue 1: Multi-GPU training). A missing synthetic dataset is regenerated
-by the port's own generators (data/ensure.py) before the paths are
-reported missing.
+data/device_augment.py). In a data-parallel world the two training
+loaders are rank-local (each rank loads its slice of every global batch);
+the eval and projection loaders stay global, and every rank evaluates the
+whole set. A missing synthetic dataset is regenerated by the port's own
+generators (data/ensure.py) before the paths are reported missing.
 
 Reference: util/data.py:17-259. Datasets: CUB-200-2011, pets, partimagenet,
 CARS, grayscale_example, geometric_shapes, geometric_shapes_gaussian_noise,
@@ -25,6 +26,7 @@ from . import augment as A
 from .datasets import (
     ImageFolder, TransformedDataset, TwoAugDataset, Subset, stratified_split,
 )
+from ..parallel.distributed import process_count, process_index
 from .loader import DataLoader, make_weighted_sample_weights
 
 __all__ = ["get_data", "get_dataloaders", "validate_dataset_paths",
@@ -371,15 +373,21 @@ def get_dataloaders(args, basepath="./", test_set_projection_full=False):
         shuffle = False
 
     common = dict(num_workers=args.num_workers, seed=args.seed)
+    # a data-parallel world: the two training loaders (the only ones that
+    # feed the rank-split train step) load this rank's slice of each
+    # global batch; eval and projection stay global
+    host_local = (dict(process_index=process_index(),
+                       process_count=process_count())
+                  if process_count() > 1 else {})
     trainloader = DataLoader(
         trainset, args.batch_size, shuffle=shuffle, drop_last=True,
-        sample_weights=sample_weights, **common)
+        sample_weights=sample_weights, **common, **host_local)
     trainloader.device_augment_cfg = getattr(trainset,
                                              "device_augment_cfg", None)
     pre_set = trainset_pretraining or trainset
     trainloader_pretraining = DataLoader(
         pre_set, args.batch_size_pretrain, shuffle=shuffle, drop_last=True,
-        sample_weights=sample_weights, **common)
+        sample_weights=sample_weights, **common, **host_local)
     trainloader_pretraining.device_augment_cfg = getattr(
         pre_set, "device_augment_cfg", None)
     trainloader_normal = DataLoader(

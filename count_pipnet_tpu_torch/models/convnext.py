@@ -245,11 +245,13 @@ class ConvNeXtFeatures(nn.Module):
         return last[3] if last[0] == "down" else last[2]
 
     def forward(self, x, *, train: bool = False, generator=None,
-                drop_masks=None):
+                drop_masks=None, shard=None):
         """[B, H, W, 3] -> [B, H', W', C] features. With ``train``, each
         block with a nonzero drop probability draws its stochastic-depth
         mask from ``generator``, unless ``drop_masks`` (indexed by
-        block_id) gives it."""
+        block_id) gives it; with ``shard`` (a rank's rows of a world
+        batch, parallel/mesh.py) at the world's size, this rank's rows
+        kept."""
         h = x.permute(0, 3, 1, 2)
         block_id = 0
         for mod in self.features:
@@ -262,10 +264,14 @@ class ConvNeXtFeatures(nn.Module):
                     if drop_masks is not None:
                         mask = drop_masks[block_id]
                     else:
-                        keep = torch.full((h.shape[0], 1, 1, 1),
-                                          1.0 - blk.sd_prob,
+                        shape = (h.shape[0], 1, 1, 1)
+                        if shard is not None:
+                            shape = shard.world_shape(shape)
+                        keep = torch.full(shape, 1.0 - blk.sd_prob,
                                           device=h.device)
                         mask = torch.bernoulli(keep, generator=generator)
+                        if shard is not None:
+                            mask = shard.take(mask)
                 h = blk(h, mask)
                 block_id += 1
         return h.permute(0, 2, 3, 1)

@@ -64,9 +64,10 @@ class AddOn(nn.Module):
         return h.permute(0, 2, 3, 1)
 
     def forward(self, features, *, tau=1.0, train: bool = True,
-                generator=None, noise=None):
+                generator=None, noise=None, shard=None):
         h = self.logits(features)
         if self.activation == "softmax":
             return torch.softmax(h.float(), dim=-1).to(h.dtype)
         return gumbel_softmax(h, tau=tau, hard=not train,
-                              generator=generator, noise=noise)
+                              generator=generator, noise=noise,
+                              shard=shard)

@@ -80,11 +80,12 @@ class PIPNet(nn.Module):
 
     def forward(self, xs, *, inference: bool = False, train: bool = False,
                 tau: float = 1.0, generator=None, noise=None,
-                drop_masks=None):
+                drop_masks=None, shard=None):
         """``xs`` [B, H, W, 3]; ``tau`` and ``noise`` are accepted for the
-        Count-PIPNet interface and unused (the add-on is a softmax)."""
+        Count-PIPNet interface and unused (the add-on is a softmax);
+        ``shard``: as in :meth:`CountPIPNet.forward`."""
         features = self.backbone(xs, train=train, generator=generator,
-                                 drop_masks=drop_masks)
+                                 drop_masks=drop_masks, shard=shard)
         proto = self.add_on(features, train=train)
         pooled = proto.float().amax(dim=(1, 2))
         if inference:
@@ -136,15 +137,18 @@ class CountPIPNet(nn.Module):
 
     def forward(self, xs, *, inference: bool = False, train: bool = False,
                 tau: float = 1.0, generator=None, noise=None,
-                drop_masks=None):
+                drop_masks=None, shard=None):
         """``xs`` [B, H, W, 3]. ``generator``: the stochastic-depth masks
         (train mode) and the Gumbel draw; ``noise`` / ``drop_masks``
         replace them (see ops.gumbel.gumbel_softmax and
-        ConvNeXtFeatures.forward)."""
+        ConvNeXtFeatures.forward). ``shard`` (parallel/mesh.py:
+        BatchShard): ``xs`` is a rank's rows of a world batch; the draws
+        are the world's, cut to those rows, and BatchNorm reads the
+        world's statistics."""
         features = self.backbone(xs, train=train, generator=generator,
-                                 drop_masks=drop_masks)
+                                 drop_masks=drop_masks, shard=shard)
         proto = self.add_on(features, tau=tau, train=train,
-                            generator=generator, noise=noise)
+                            generator=generator, noise=noise, shard=shard)
         counts = proto.float().sum(dim=(1, 2))
         pooled, out = self.head(counts, inference)
         return proto, pooled, out

@@ -26,6 +26,13 @@ BatchNorm moves ``running_var`` toward the unbiased one); with
 move in every training forward, whether or not the layer's parameters
 train, as flax's mutable ``batch_stats`` do. The module's own
 ``training`` flag plays no part: the caller's ``train`` decides.
+
+In a data-parallel world (a ``shard``, parallel/mesh.py) a training
+forward normalises with the world batch's statistics, as flax's BatchNorm
+does under the JAX package's mesh: each layer all-reduces its per-channel
+sum, sum of squares and count, and the biased variance is E[x²] - E[x]²
+(flax's rule). The gradient runs through the all-reduce, and the running
+statistics move alike on every rank.
 """
 
 import math
@@ -73,19 +80,39 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, shard=None):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        dt = self.running_var.dtype
+        if shard is None:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            # the biased variance
+            var = invstd.detach().to(dt).pow(-2) - self.eps
+        else:
+            y, mean, var = self._world_forward(x, shard)
         with torch.no_grad():
-            dt = self.running_var.dtype
-            var = invstd.to(dt).pow(-2) - self.eps  # the biased variance
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.to(dt), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(dt), alpha=m)
         return y
+
+    def _world_forward(self, x, shard):
+        """Normalise with the world batch's statistics: (y, mean, biased
+        variance), the statistics from one all-reduce of [sum, sum of
+        squares, count] per channel."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = torch.full_like(xf[0, :, 0, 0], xf.numel() / xf.shape[1])
+        stats = shard.all_reduce(torch.stack([
+            xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), n]))
+        mean = stats[0] / stats[2]
+        var = (stats[1] / stats[2] - mean * mean).clamp(min=0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * scale.view(shape) + \
+            self.bias.view(shape)
+        return y.to(x.dtype), mean.detach(), var.detach()
 
 
 class BasicBlock(nn.Module):
@@ -104,10 +131,10 @@ class BasicBlock(nn.Module):
                                          BatchNorm(planes))
                            if downsample else None)
 
-    def forward(self, x, train: bool = False):
-        h = F.relu(self.bn1(self.conv1(x), train))
-        h = self.bn2(self.conv2(h), train)
-        return F.relu(_shortcut(self.downsample, x, train) + h)
+    def forward(self, x, train: bool = False, shard=None):
+        h = F.relu(self.bn1(self.conv1(x), train, shard))
+        h = self.bn2(self.conv2(h), train, shard)
+        return F.relu(_shortcut(self.downsample, x, train, shard) + h)
 
 
 class Bottleneck(nn.Module):
@@ -129,17 +156,17 @@ class Bottleneck(nn.Module):
                                          BatchNorm(width))
                            if downsample else None)
 
-    def forward(self, x, train: bool = False):
-        h = F.relu(self.bn1(self.conv1(x), train))
-        h = F.relu(self.bn2(self.conv2(h), train))
-        h = self.bn3(self.conv3(h), train)
-        return F.relu(_shortcut(self.downsample, x, train) + h)
+    def forward(self, x, train: bool = False, shard=None):
+        h = F.relu(self.bn1(self.conv1(x), train, shard))
+        h = F.relu(self.bn2(self.conv2(h), train, shard))
+        h = self.bn3(self.conv3(h), train, shard)
+        return F.relu(_shortcut(self.downsample, x, train, shard) + h)
 
 
-def _shortcut(downsample, x, train):
+def _shortcut(downsample, x, train, shard=None):
     if downsample is None:
         return x
-    return downsample[1](downsample[0](x), train)
+    return downsample[1](downsample[0](x), train, shard)
 
 
 class ResNetFeatures(nn.Module):
@@ -169,16 +196,17 @@ class ResNetFeatures(nn.Module):
         return 512 * self.block.expansion
 
     def forward(self, x, *, train: bool = False, generator=None,
-                drop_masks=None):
+                drop_masks=None, shard=None):
         """[B, H, W, 3] -> [B, H', W', C] features. ``generator`` and
         ``drop_masks`` are accepted for the ConvNeXt interface and unused
-        (a ResNet has no stochastic depth)."""
+        (a ResNet has no stochastic depth); ``shard``: the BatchNorms of a
+        training forward read the world batch's statistics."""
         h = x.permute(0, 3, 1, 2)
-        h = F.relu(self.bn1(self.conv1(h), train))
+        h = F.relu(self.bn1(self.conv1(h), train, shard))
         h = F.max_pool2d(h, 3, stride=2, padding=1)
         for i in range(1, 5):
             for blk in getattr(self, f"layer{i}"):
-                h = blk(h, train)
+                h = blk(h, train, shard)
         return h.permute(0, 2, 3, 1)
 
 

@@ -19,8 +19,16 @@ gumbel-hard composition that bench.py:82-93 runs on the TPU. Both return
   block runs fused with the head (kernel C), so the last feature plane is
   never stored; with ``num_features > 0`` every block runs kernel A, the
   add-on 1x1 conv is a PyTorch op and the head is kernel B.
+* :func:`shard_serving_fn` binds either forward to several devices, data
+  parallel: one replica a device, each call split into equal shards.
+
+Each forward runs under ``torch.cuda.device`` of its device: the kernels
+launch on the CUDA runtime's current device (ops/cuda/__init__.py:
+stream_ptr).
 """
 
+import contextlib
+import copy
 import itertools
 
 import torch
@@ -32,14 +40,25 @@ from .quantized import (fused_block_convnext_apply, fused_convnext_apply,
                         prepare_fused_blocks, prepare_fused_mlp,
                         quant_convnext_apply, quantize_convnext_params)
 
-__all__ = ["make_serving_fn", "make_gumbel_serving_fn", "with_seed_counter"]
+__all__ = ["make_serving_fn", "make_gumbel_serving_fn", "with_seed_counter",
+           "shard_serving_fn"]
 
 
 def _place(model, state_dict, device):
     if state_dict is not None:
         model.load_state_dict(state_dict)
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return model.to(device).eval(), device
+
+
+def on_device(device):
+    """``torch.cuda.device(device)`` for a CUDA device, else a no-op."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def make_serving_fn(model, state_dict=None, device="cuda", *,
@@ -97,6 +116,10 @@ def make_serving_fn(model, state_dict=None, device="cuda", *,
 
     @torch.inference_mode()
     def infer(x):
+        with on_device(device):
+            return forward(x)
+
+    def forward(x):
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
         counts = fused_count_head(features(x), w, b, prepared=head)
         clamped = torch.clamp(torch.round(counts), 0.0, max_count)
@@ -145,6 +168,10 @@ def make_gumbel_serving_fn(model, state_dict=None, act_scales=None,
 
     @torch.inference_mode()
     def infer(x, seed: int, noise=None):
+        with on_device(device):
+            return forward(x, seed, noise)
+
+    def forward(x, seed, noise):
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
         if fused_head:
             counts = fused_block_convnext_apply(
@@ -161,6 +188,44 @@ def make_gumbel_serving_fn(model, state_dict=None, act_scales=None,
         if bias is not None:
             out = out + bias
         return clamped, out
+
+    return infer
+
+
+def shard_serving_fn(make_fn, model, devices, state_dict=None, **make_kw):
+    """Bind a serving forward to ``devices``, data parallel (the JAX
+    package's ``shard_serving_fn`` over a mesh).
+
+    ``make_fn``: :func:`make_serving_fn` or :func:`make_gumbel_serving_fn`,
+    called once a device on its own copy of ``model`` (with
+    ``state_dict`` and ``make_kw``), so every replica holds its own
+    weights, placed once. The returned ``infer(x, seed=None, noise=None)``
+    splits the batch into equal shards in device order, runs each replica
+    on its shard (under its device), and concatenates the outputs on the
+    first device. A gumbel forward's shard i draws from the seed
+    ``seed * len(devices) + i``: no two shards of a call, nor of calls with
+    different seeds, share a stream; an injected ``noise`` is split with
+    the batch, so the result equals the unsharded call's."""
+    devices = [torch.device(d) for d in devices]
+    replicas = [make_fn(copy.deepcopy(model), state_dict, device=d,
+                        **make_kw) for d in devices]
+    n = len(devices)
+
+    def infer(x, seed=None, noise=None):
+        if x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} not divisible by the "
+                             f"{n} serving devices")
+        per = x.shape[0] // n
+        outs = []
+        for i, fn in enumerate(replicas):
+            rows = slice(i * per, (i + 1) * per)
+            if seed is None and noise is None:
+                outs.append(fn(x[rows]))
+            else:
+                outs.append(fn(x[rows], (seed or 0) * n + i,
+                               None if noise is None else noise[rows]))
+        return tuple(torch.cat([o[k].to(devices[0]) for o in outs])
+                     for k in range(len(outs[0])))
 
     return infer
 

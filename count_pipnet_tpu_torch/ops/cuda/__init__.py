@@ -9,6 +9,13 @@ points that take raw device pointers and the CUDA stream; they launch and
 return ``cudaGetLastError()``. :func:`check` raises on a non-zero code —
 there is no fallback to the plain PyTorch versions.
 
+A kernel launches on the CUDA runtime's *current* device, and its SM count
+and ``cudaFuncSetAttribute`` calls read that device too, whatever device
+its pointers live on. So every launcher takes its stream from
+:func:`stream_ptr`, which raises unless the tensor's device is the current
+one: run a forward on another card under ``torch.cuda.device`` (as
+models/serving.py and a rank of parallel/ do).
+
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
 """
@@ -25,7 +32,7 @@ from pathlib import Path
 
 __all__ = ["library", "check", "ptr", "stream_ptr", "launch_counts",
            "launch_widths", "count_launch", "reset_launch_counts",
-           "build_info", "ptxas_entries"]
+           "build_info", "ptxas_entries", "check_current_device"]
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
@@ -295,6 +302,20 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def check_current_device(index, current):
+    """Raise unless a tensor on CUDA device ``index`` (None: the current
+    one) may launch while ``current`` is the runtime's current device."""
+    if index is not None and index != current:
+        raise RuntimeError(
+            f"a kernel's tensor is on cuda:{index} but the current CUDA "
+            f"device is cuda:{current}; the kernels launch on the current "
+            f"device: run it under torch.cuda.device('cuda:{index}')")
+
+
 def stream_ptr(device):
+    """The current stream of ``device``, the one a launcher passes its
+    kernel, once :func:`check_current_device` holds."""
     import torch
+    device = torch.device(device)
+    check_current_device(device.index, torch.cuda.current_device())
     return torch.cuda.current_stream(device).cuda_stream

@@ -12,14 +12,19 @@ import torch.nn.functional as F
 __all__ = ["gumbel_softmax", "hard_deterministic", "sample_gumbel"]
 
 
-def sample_gumbel(shape, generator=None, device=None):
-    """f32 Gumbel(0, 1) noise drawn from ``generator``."""
+def sample_gumbel(shape, generator=None, device=None, shard=None):
+    """f32 Gumbel(0, 1) noise drawn from ``generator``; with ``shard``
+    (parallel/mesh.py: BatchShard) drawn at the world batch's shape, and
+    this rank's rows kept."""
+    if shard is not None:
+        return shard.take(sample_gumbel(shard.world_shape(shape), generator,
+                                        device))
     e = torch.empty(shape, dtype=torch.float32, device=device)
     return -e.exponential_(generator=generator).log()
 
 
 def gumbel_softmax(logits, tau=1.0, hard=False, generator=None, noise=None,
-                   dim=-1):
+                   dim=-1, shard=None):
     """Sample from the Gumbel-Softmax distribution over ``dim``.
 
     Args:
@@ -28,11 +33,13 @@ def gumbel_softmax(logits, tau=1.0, hard=False, generator=None, noise=None,
       hard: straight-through one-hot (forward hard, backward soft).
       generator: ``torch.Generator`` for the noise (ignored with ``noise``).
       noise: optional pre-drawn Gumbel noise of ``logits``' shape.
+      shard: a rank's rows of a world batch (see :func:`sample_gumbel`).
 
     Returns a tensor of ``logits``' shape and dtype.
     """
     if noise is None:
-        noise = sample_gumbel(logits.shape, generator, logits.device)
+        kw = {} if shard is None else {"shard": shard}
+        noise = sample_gumbel(logits.shape, generator, logits.device, **kw)
     y_soft = torch.softmax((logits.float() + noise.float()) / tau, dim=dim)
     if not hard:
         return y_soft.to(logits.dtype)

@@ -1,9 +1,8 @@
 """Serving loop: request batching and pipelined dispatch.
 
-Port of count_pipnet_tpu/serving/engine.py for one device (the JAX
-engine's ``mesh`` option, multi-device data parallel serving, is ROADMAP
-Queue 1: Multi-GPU serving). A service receives single images at unpredictable times and
-must trade latency against the device's preference for large batches:
+Port of count_pipnet_tpu/serving/engine.py. A service receives single
+images at unpredictable times and must trade latency against the device's
+preference for large batches:
 
 * **Batch-size ladder**: requests are padded up to the nearest size in
   ``batch_sizes``, so the forward sees a few fixed shapes.
@@ -18,6 +17,9 @@ must trade latency against the device's preference for large batches:
 Works with any ``infer_fn(x) -> tensor | tuple | list | dict`` of tensors
 with a leading batch dimension, e.g. models.serving.make_serving_fn (the
 softmax path) as it is, or with_seed_counter around make_gumbel_serving_fn.
+Data-parallel serving over several devices (the JAX engine's ``mesh``):
+``infer_fn`` from models.serving.shard_serving_fn and ``devices`` its
+device list, so that every ladder size splits evenly across them.
 """
 
 import queue
@@ -69,15 +71,28 @@ class ServingEngine:
         partial batch is dispatched.
       max_inflight: batches allowed in flight before the collector blocks
         (2 = double buffering).
+      devices: the devices of a sharded ``infer_fn``
+        (models.serving.shard_serving_fn), which splits each ladder batch
+        into equal shards, one a device; every ladder size must divide by
+        their count.
     """
 
     def __init__(self, infer_fn: Callable,
                  input_shape: Tuple[int, int, int],
                  batch_sizes: Sequence[int] = (1, 8, 32, 128, 256),
                  max_wait_ms: float = 2.0,
-                 max_inflight: int = 2):
+                 max_inflight: int = 2,
+                 devices: Optional[Sequence] = None):
         if not batch_sizes or list(batch_sizes) != sorted(batch_sizes):
             raise ValueError("batch_sizes must be ascending and non-empty")
+        if devices is not None:
+            n = len(devices)
+            bad = [b for b in batch_sizes if b % n]
+            if bad:
+                raise ValueError(
+                    f"batch_sizes {bad} not divisible by the {n}-device "
+                    f"mesh: every ladder size must shard evenly")
+        self.devices = devices
         self.infer_fn = infer_fn
         self.input_shape = tuple(input_shape)
         self.batch_sizes = tuple(int(b) for b in batch_sizes)

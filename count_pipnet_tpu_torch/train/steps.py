@@ -12,6 +12,12 @@ test.py:67-146). A step takes the phase as a small dict ``sched``:
 
 Trainability is not in ``sched``: the trainer sets ``requires_grad`` per
 phase (optim.set_trainable).
+
+In a data-parallel world (``mesh``, parallel/mesh.py) the batch is this
+rank's rows of the world's: the loss is the rank's share, the gradients
+are summed over the ranks before the optimizer step, and the metrics are
+the world's. The step then equals the one-process step on the joined
+batch; without a mesh it is that step.
 """
 
 from contextlib import nullcontext
@@ -19,6 +25,7 @@ from contextlib import nullcontext
 import torch
 
 from ..ops.losses import calculate_loss
+from ..parallel.mesh import BatchShard, all_reduce_grads
 
 __all__ = ["train_step", "project_classifier", "eval_stats",
            "autocast_for"]
@@ -46,20 +53,25 @@ def project_classifier(model):
 def train_step(model, optimizer, batch, sched, *, is_count_pipnet=True,
                enforce_weight_sparsity=True, tanh_loss_coeff=1.0,
                class_weights=None, generator=None, dtype="float32",
-               noise=None, drop_masks=None):
+               noise=None, drop_masks=None, mesh=None):
     """One optimizer step on a two-view batch ``(xs1, xs2, ys)`` (tensors
     on the model's device). ``noise`` / ``drop_masks`` replace the Gumbel
-    and stochastic-depth draws from ``generator``. Returns the metrics as
-    0-d tensors (no host sync)."""
+    and stochastic-depth draws from ``generator``. ``mesh``: the
+    data-parallel world (``None`` or a mesh that is not distributed: the
+    one-process step). Returns the metrics as 0-d tensors (no host
+    sync)."""
+    if mesh is not None and not mesh.distributed:
+        mesh = None
     xs1, xs2, ys = batch
     x = torch.cat([xs1, xs2])
     for group in optimizer.param_groups:
         group["lr"] = sched["lr"][group["label"]]
     optimizer.zero_grad(set_to_none=True)
     with autocast_for(x.device, dtype):
-        proto, pooled, out = model(x, train=True, tau=sched["tau"],
-                                   generator=generator, noise=noise,
-                                   drop_masks=drop_masks)
+        proto, pooled, out = model(
+            x, train=True, tau=sched["tau"], generator=generator,
+            noise=noise, drop_masks=drop_masks,
+            shard=None if mesh is None else BatchShard(mesh, chunks=2))
     loss, acc, comps = calculate_loss(
         proto.float(), pooled.float(), out.float(), ys,
         sched["align_w"], sched["tanh_w"], sched["class_w"],
@@ -67,15 +79,19 @@ def train_step(model, optimizer, batch, sched, *, is_count_pipnet=True,
         sched["pretrain"], sched["finetune"],
         is_count_pipnet=is_count_pipnet,
         enforce_weight_sparsity=enforce_weight_sparsity,
-        tanh_loss_coeff=tanh_loss_coeff, class_weights=class_weights)
+        tanh_loss_coeff=tanh_loss_coeff, class_weights=class_weights,
+        mesh=mesh)
     if loss.requires_grad:
         loss.backward()
+    if mesh is not None:
+        all_reduce_grads(model.parameters(), mesh)
     optimizer.step()
     if (sched["project"] > 0 and not sched["pretrain"]
             and enforce_weight_sparsity):
         project_classifier(model)
-    return {"loss": loss.detach(), "acc": acc.detach(),
-            **{k: v.detach() for k, v in comps.items()}}
+    metrics = {"loss": loss.detach(), "acc": acc.detach(),
+               **{k: v.detach() for k, v in comps.items()}}
+    return metrics if mesh is None else mesh.sum_values(metrics)
 
 
 @torch.no_grad()

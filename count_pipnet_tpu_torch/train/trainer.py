@@ -27,6 +27,15 @@ runs the forward under ``torch.autocast`` with f32 parameters. A loader
 that carries a ``device_augment_cfg`` (``--device_augment``) yields
 single-view batches; both views are made on the device
 (data/device_augment.py) from a generator of their own.
+
+``--mesh_shape N`` trains data-parallel on N ranks (main.py spawns them,
+or torchrun starts them): the trainer builds the world's mesh on this
+rank's device, replicates rank 0's state at the start and after every
+load, and each step equals the one-process step on the joined batch
+(train/steps.py). Every rank evaluates the whole test set; only rank 0
+writes files (the CSV, checkpoints, ``metadata/``, the visualisations,
+``--interpret``), and the ranks meet at a barrier before reading
+``net_best``.
 """
 
 import os
@@ -38,6 +47,8 @@ import torch
 from ..config import save_args
 from ..data.device_augment import make_device_twoview_augment
 from ..models.pipnet import get_count_network, get_pipnet
+from ..parallel import distributed
+from ..parallel.mesh import BatchShard, make_mesh, replicate
 from ..utils.checkpoint import (CheckpointManager, find_shared_backbone,
                                 graft_pretrained, load_backbone_only)
 from ..utils.log import Log
@@ -61,16 +72,16 @@ _METRICS = ("loss", "acc", "align", "tanh", "class", "align_weighted",
             "tanh_weighted", "class_weighted")
 
 
+# (a test of args, what it needs): the flags whose path the port does not
+# carry, each naming its ROADMAP Queue 1 item by title. Empty: every flag
+# of the JAX package's CLI is ported.
+UNPORTED = ()
+
+
 def check_ported(args):
-    """Raise ``NotImplementedError`` for a flag whose path the port does not
-    carry yet, naming its ROADMAP Queue 1 item by title."""
-    g = lambda k, d=False: getattr(args, k, d)  # noqa: E731
-    missing = [
-        (g("mesh_shape", -1) > 1,
-         "--mesh_shape > 1 (ROADMAP Queue 1: Multi-GPU training)"),
-    ]
-    for bad, what in missing:
-        if bad:
+    """Raise ``NotImplementedError`` for a flag of :data:`UNPORTED`."""
+    for bad, what in UNPORTED:
+        if bad(args):
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet")
 
@@ -82,9 +93,13 @@ class Trainer:
         self.args = args
         self.num_classes = num_classes
         self.classes = classes
-        self.device = torch.device(
-            device or ("cpu" if getattr(args, "disable_cuda", False)
-                       else "cuda"))
+        if device is None:
+            device = distributed.device()  # a rank's own device
+        if device is None:
+            device = ("cpu" if getattr(args, "disable_cuda", False) else
+                      torch.device("cuda", torch.cuda.current_device()))
+        self.device = torch.device(device)
+        self.mesh = make_mesh(getattr(args, "mesh_shape", -1), self.device)
         self.dtype = getattr(args, "dtype", "bfloat16")
         self.is_count = getattr(args, "model", "pipnet") == "count_pipnet"
         self.use_gumbel = (getattr(args, "activation", "gumbel_softmax")
@@ -111,6 +126,12 @@ class Trainer:
             train_intermediate=getattr(args, "train_intermediate", True),
             bias=getattr(args, "bias", False))
         self.reinit_optimizers()
+        self.replicate()
+
+    def replicate(self):
+        """Rank 0's model and optimizer state on every rank (a no-op in
+        one process)."""
+        replicate(self.mesh, self.model, self.optimizer)
 
     def _classifier_init(self):
         """Reference classifier init (main.py:166-172): weight ~
@@ -232,7 +253,9 @@ class Trainer:
             if augment is not None:
                 xs, ys = host_batch  # uint8 single views
                 v1, v2 = augment(self.aug_generator,
-                                 torch.as_tensor(xs, device=self.device))
+                                 torch.as_tensor(xs, device=self.device),
+                                 BatchShard(self.mesh)
+                                 if self.mesh.distributed else None)
             else:
                 xs1, xs2, ys = host_batch
                 v1, v2 = self.to_device(xs1), self.to_device(xs2)
@@ -243,7 +266,7 @@ class Trainer:
                 enforce_weight_sparsity=getattr(
                     args, "enforce_weight_sparsity", True),
                 tanh_loss_coeff=getattr(args, "tanh_loss_coeff", 1.0),
-                generator=self.generator, dtype=self.dtype)
+                generator=self.generator, dtype=self.dtype, mesh=self.mesh)
             for k in _METRICS:
                 totals[k] += metrics[k]
             if not finetune:
@@ -427,7 +450,46 @@ def restore_initial_state(trainer, ckpt, args):
             args.epochs_pretrain = 0
             print("Loaded pretrained checkpoint from standard location",
                   flush=True)
+    trainer.replicate()
     return start_epoch, resumed
+
+
+def _log_epoch(log, ckpt, trainer, epoch, info, eval_info, lrs_net,
+               lrs_class, args):
+    """A main epoch's files: the CSV row, the checkpoints, the lr plots."""
+    log.log_values(
+        "log_epoch_overview", epoch, eval_info["top1_accuracy"],
+        eval_info["local_size_for_true_class"],
+        eval_info["local_size_for_all_classes"],
+        eval_info["prototypes_per_class"], eval_info["almost_nonzeros"],
+        eval_info["num non-zero prototypes"], info["train_accuracy"],
+        info["loss"], info["align_loss_raw"], info["tanh_loss_raw"],
+        info["class_loss_raw"], info["align_loss_weighted"],
+        info["tanh_loss_weighted"], info["class_loss_weighted"])
+    model_state = trainer.model.state_dict()
+    opt_state = trainer.optimizer.state_dict()
+    ckpt.save_trained_checkpoint(model_state, opt_state, epoch,
+                                 tau=trainer.tau)
+    ckpt.save_best_checkpoint(model_state, opt_state, epoch,
+                              eval_info["top1_accuracy"])
+    _plot_lrs(lrs_net, os.path.join(args.log_dir, "lr_net.png"))
+    _plot_lrs(lrs_class, os.path.join(args.log_dir, "lr_class.png"))
+
+
+def _load_best(ckpt, trainer):
+    """``net_best``, read by every rank once rank 0 has written it (the
+    JAX trainer's sync and visibility check): a rank that does not see
+    rank 0's file raises, since its --log_dir is not shared."""
+    distributed.barrier()
+    best = ckpt.load_best_checkpoint()
+    if trainer.mesh.distributed:
+        have = bool(distributed.broadcast_one_to_all(best is not None))
+        if have != (best is not None):
+            raise RuntimeError(
+                "net_best checkpoint visible on process 0 but not on "
+                f"process {trainer.mesh.rank}: --log_dir must be on a "
+                "filesystem shared across the ranks")
+    return best
 
 
 def run_pipnet(args, loaders=None):
@@ -440,7 +502,11 @@ def run_pipnet(args, loaders=None):
         validate_dataset_paths(args)
     log = Log(args.log_dir)
     print("Log dir:", args.log_dir, flush=True)
-    save_args(args, log.metadata_dir)
+    # a data-parallel world runs this on every rank; only rank 0 writes
+    # files, so N ranks never write one path at once
+    is_main = distributed.process_index() == 0
+    if is_main:
+        save_args(args, log.metadata_dir)
     if loaders is None:
         from ..data.registry import get_dataloaders
         loaders = get_dataloaders(args)
@@ -453,8 +519,9 @@ def run_pipnet(args, loaders=None):
     start_epoch, resumed = restore_initial_state(trainer, ckpt, args)
 
     trainer.probe_wshape(trainloader)
-    log.create_log("log_epoch_overview", "epoch", *LOG_COLUMNS,
-                   append=resumed)
+    if is_main:
+        log.create_log("log_epoch_overview", "epoch", *LOG_COLUMNS,
+                       append=resumed)
 
     # ---------------- PHASE 1: prototype pretraining ----------------------
     net_sched = {"T": len(trainloader_pretraining) * args.epochs_pretrain,
@@ -471,6 +538,8 @@ def run_pipnet(args, loaders=None):
         if trainer.is_count and trainer.use_gumbel:
             trainer.anneal_tau(epoch)
         lrs_pretrain += info["lrs_net"]
+        if not is_main:
+            continue
         _plot_lrs(lrs_pretrain, os.path.join(args.log_dir,
                                              "lr_pretrain_net.png"))
         log.log_values(
@@ -478,14 +547,15 @@ def run_pipnet(args, loaders=None):
             "n.a.", "n.a.", "n.a.", info["loss"], info["align_loss_raw"],
             info["tanh_loss_raw"], "n.a.", info["align_loss_weighted"],
             info["tanh_loss_weighted"], "n.a.")
-    if args.epochs_pretrain > 0 and not resumed:
-        ckpt.save_pretrained_checkpoint(trainer.model.state_dict())
-    _visualize(trainer, projectloader, num_classes,
-               "visualised_pretrained_prototypes_topk", args,
-               "pretrain prototype visualization", k=10,
-               are_pretraining_prototypes=True, plot_histograms=False,
-               visualize_prototype_maps=False,
-               plot_topk=getattr(args, "viz_topk", True))
+    if is_main:
+        if args.epochs_pretrain > 0 and not resumed:
+            ckpt.save_pretrained_checkpoint(trainer.model.state_dict())
+        _visualize(trainer, projectloader, num_classes,
+                   "visualised_pretrained_prototypes_topk", args,
+                   "pretrain prototype visualization", k=10,
+                   are_pretraining_prototypes=True, plot_histograms=False,
+                   visualize_prototype_maps=False,
+                   plot_topk=getattr(args, "viz_topk", True))
 
     # ---------------- PHASE 2: classification training --------------------
     if not resumed:
@@ -512,7 +582,7 @@ def run_pipnet(args, loaders=None):
                 and args.epochs > 1):
             trainer.zero_small_weights()
         prof = None
-        if profile_dir and epoch == start_epoch:
+        if profile_dir and epoch == start_epoch and is_main:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if trainer.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -538,23 +608,9 @@ def run_pipnet(args, loaders=None):
             enforce_weight_sparsity=getattr(args, "enforce_weight_sparsity",
                                             True),
             generator=eval_generator, tau=trainer.tau, dtype=trainer.dtype)
-        log.log_values(
-            "log_epoch_overview", epoch, eval_info["top1_accuracy"],
-            eval_info["local_size_for_true_class"],
-            eval_info["local_size_for_all_classes"],
-            eval_info["prototypes_per_class"], eval_info["almost_nonzeros"],
-            eval_info["num non-zero prototypes"], info["train_accuracy"],
-            info["loss"], info["align_loss_raw"], info["tanh_loss_raw"],
-            info["class_loss_raw"], info["align_loss_weighted"],
-            info["tanh_loss_weighted"], info["class_loss_weighted"])
-        model_state = trainer.model.state_dict()
-        opt_state = trainer.optimizer.state_dict()
-        ckpt.save_trained_checkpoint(model_state, opt_state, epoch,
-                                     tau=trainer.tau)
-        ckpt.save_best_checkpoint(model_state, opt_state, epoch,
-                                  eval_info["top1_accuracy"])
-        _plot_lrs(lrs_net, os.path.join(args.log_dir, "lr_net.png"))
-        _plot_lrs(lrs_class, os.path.join(args.log_dir, "lr_class.png"))
+        if is_main:
+            _log_epoch(log, ckpt, trainer, epoch, info, eval_info, lrs_net,
+                       lrs_class, args)
         epochs_this_process += 1
         if (chunk_budget and epochs_this_process >= chunk_budget
                 and epoch < args.epochs):
@@ -563,19 +619,21 @@ def run_pipnet(args, loaders=None):
                   "--resume_training to continue.", flush=True)
             return trainer
 
-    if args.epochs > 1:
+    if args.epochs > 1 and is_main:
         # keep the final epoch number, so --resume_training on a finished
         # run extends it instead of restarting
         ckpt.save_trained_checkpoint(trainer.model.state_dict(),
                                      trainer.optimizer.state_dict(),
                                      args.epochs, tau=trainer.tau)
     print("\nLoading best model for prototype visualization...", flush=True)
-    best = ckpt.load_best_checkpoint()
+    best = _load_best(ckpt, trainer)
     if best is not None:
         state, meta = best
         trainer.model.load_state_dict(state["model"])
+        trainer.replicate()
         print(f"Loaded best model from epoch {meta.get('epoch')} with "
               f"accuracy {meta.get('accuracy', 0):.4f}", flush=True)
+    if best is not None and is_main:
         _visualize(trainer, projectloader, num_classes,
                    f"visualised_prototypes_topk_best_model_epoch"
                    f"{meta.get('epoch')}", args, "prototype visualization",
@@ -584,11 +642,11 @@ def run_pipnet(args, loaders=None):
                        args, "viz_prototype_maps", True),
                    plot_topk=getattr(args, "viz_topk", True),
                    are_pretraining_prototypes=False)
-    else:
+    elif best is None:
         print("Failed to load best model for prototype visualization",
               flush=True)
     _print_scoring_sheet(trainer, classes)
-    if getattr(args, "interpret", False):
+    if getattr(args, "interpret", False) and is_main:
         _interpret(trainer, projectloader, classes, args, log)
     print("Done!", flush=True)
     return trainer

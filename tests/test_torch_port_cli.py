@@ -8,9 +8,9 @@ device augmentation, on the depthwise + fused-MLP route, with the
 default ``--model pipnet``, with the bilinear intermediate and on a
 resnet18 PIP-Net; with ``--interpret`` it writes the interpretability
 suite's artifacts; without a CUDA device and without ``--disable_cuda``
-it exits non-zero; its flags and defaults are the JAX package's; flags
-whose path is not ported raise, and a Count-PIPNet on a ResNet raises as
-in the JAX package."""
+it exits non-zero; its flags and defaults are the JAX package's; no flag
+is left unported (``--mesh_shape`` was the last), and a Count-PIPNet on a
+ResNet raises as in the JAX package."""
 
 import argparse
 import csv
@@ -247,9 +247,14 @@ def test_parser_defaults_equal_the_jax_package():
     (["--mesh_shape", "4"], "Queue 1: Multi-GPU training"),
 ])
 def test_unported_flags_raise(flags, item):
+    """The flags that raised while their ROADMAP item was open pass now
+    that it is ported (``--mesh_shape N`` trains on N ranks,
+    tests/test_torch_port_parallel.py), and no flag is left to raise."""
+    from count_pipnet_tpu_torch.train.trainer import UNPORTED
     args = build_parser().parse_args(["--model", "count_pipnet"] + flags)
-    with pytest.raises(NotImplementedError, match=item):
-        check_ported(args)
+    check_ported(args)
+    assert not any(item in what for _, what in UNPORTED)
+    assert UNPORTED == ()
     check_ported(argparse.Namespace(**dict(vars(build_parser().parse_args(
         ["--model", "count_pipnet"])))))
 

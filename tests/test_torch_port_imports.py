@@ -26,6 +26,9 @@ bad = [m for m in sys.modules
        and sys.modules[m] is not None]
 print(len(names), bad)
 assert not bad, bad
+# the data-parallel modules, the native assembler and the dry run too
+for mod in ("parallel.distributed", "parallel.mesh", "native", "dryrun"):
+    assert pkg.__name__ + "." + mod in names, mod
 """
 
 
@@ -57,3 +60,20 @@ def test_cuda_sources_tracked_and_packaged():
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert '"count_pipnet_tpu_torch.ops.cuda" = ["*.cu", "*.cuh"]' \
         in pyproject
+
+
+def test_native_source_tracked_and_packaged():
+    """The batch assembler's C++ source ships with the package; what it
+    builds lands in an ignored directory."""
+    assert '"count_pipnet_tpu_torch.native" = ["*.cpp"]' in (
+        ROOT / "pyproject.toml").read_text()
+    if not (ROOT / ".git").exists():
+        pytest.skip("not a git checkout")
+    src = "count_pipnet_tpu_torch/native/batch_ops.cpp"
+    tracked = subprocess.run(["git", "ls-files", "--error-unmatch", src],
+                             cwd=ROOT, capture_output=True, text=True)
+    assert tracked.returncode == 0, tracked.stderr
+    ignored = subprocess.run(
+        ["git", "check-ignore", "-q",
+         "count_pipnet_tpu_torch/native/_build/libbatch_ops_0.so"], cwd=ROOT)
+    assert ignored.returncode == 0, "the native build dir must be ignored"
