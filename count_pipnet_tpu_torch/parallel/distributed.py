@@ -21,17 +21,27 @@ program over every device of the mesh; the port runs one process a device
   (data/loader.py), so no data crosses between ranks.
 """
 
+import datetime
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["maybe_initialize", "is_initialized", "is_distributed",
-           "process_index", "process_count", "device", "host_batch_slice",
-           "barrier", "broadcast_one_to_all", "comm_device", "shutdown"]
+__all__ = ["PG_TIMEOUT", "maybe_initialize", "is_initialized",
+           "is_distributed", "process_index", "process_count", "device",
+           "host_batch_slice", "barrier", "broadcast_one_to_all",
+           "comm_device", "shutdown"]
 
 _DEVICE = {}
+
+# The world's collective timeout. Rank 0 alone renders the projection
+# visualisations (train/trainer.py: _visualize, and the --interpret suite)
+# while the other ranks wait in their next collective. PyTorch's default
+# under NCCL (default_pg_nccl_timeout) is 10 minutes, which a large
+# projection set's visualisation can outlast; an hour covers it and still
+# ends a world that hangs.
+PG_TIMEOUT = datetime.timedelta(hours=1)
 
 
 def maybe_initialize(init_method=None, world_size=None, rank=None,
@@ -74,7 +84,8 @@ def maybe_initialize(init_method=None, world_size=None, rank=None,
         dev = torch.device("cpu")
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     dist.init_process_group(backend, init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=world_size, rank=rank,
+                            timeout=PG_TIMEOUT)
     _DEVICE["device"] = dev
     return True
 

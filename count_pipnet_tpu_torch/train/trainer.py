@@ -118,6 +118,10 @@ class Trainer:
         # depth, Gumbel noise), so the two are not correlated
         self.aug_generator = torch.Generator(self.device).manual_seed(
             args.seed + 1)
+        # the main phase's evaluation draws (the Gumbel noise of the test
+        # pass)
+        self.eval_generator = torch.Generator(self.device).manual_seed(
+            args.seed + 7)
         self.tau = 1.0
         self.labels = label_params(
             self.model, args.net,
@@ -142,6 +146,23 @@ class Trainer:
             clf.normalization_multiplier.fill_(2.0)
             if clf.bias is not None:
                 clf.bias.zero_()
+
+    def rng_state(self) -> Dict:
+        """The states of the run's random streams (saved with
+        ``net_trained``)."""
+        return {name: getattr(self, name).get_state()
+                for name in ("generator", "aug_generator", "eval_generator")}
+
+    def set_rng_state(self, states: Dict):
+        """Restore :meth:`rng_state`'s states; one saved on another device
+        type (a CPU run resumed on the card) leaves its stream fresh."""
+        for name, state in states.items():
+            gen = getattr(self, name)
+            if state.numel() == gen.get_state().numel():
+                gen.set_state(state)
+            else:
+                print(f"({name} not restored: saved on another device "
+                      "type)", flush=True)
 
     def reinit_optimizers(self):
         """Fresh AdamW state (the reference re-creates both optimizers at
@@ -351,13 +372,16 @@ def _print_scoring_sheet(trainer, classes):
 def _visualize(trainer, projectloader, num_classes, folder, args, what,
                **kw):
     """vizualize_network into ``<log_dir>/<folder>``; a failure is printed
-    and the run carries on, as in the JAX trainer."""
+    and the run carries on, as in the JAX trainer. Its wall time is printed:
+    in a world, the other ranks wait that long at their next collective."""
+    t0 = time.time()
     try:
         from ..interpret.vis_pipnet import vizualize_network
         vizualize_network(trainer, projectloader, num_classes, folder, args,
                           **kw)
     except Exception as e:
         print(f"({what} skipped: {e})", flush=True)
+    print(f"  {what} took {time.time() - t0:.1f}s", flush=True)
 
 
 def _interpret(trainer, projectloader, classes, args, log):
@@ -433,6 +457,8 @@ def restore_initial_state(trainer, ckpt, args):
                 start_epoch = int(meta["epoch"]) + 1
             if meta.get("tau") is not None:
                 trainer.update_temperature(meta["tau"])
+            if state.get("rng"):
+                trainer.set_rng_state(state["rng"])
             resumed = True
             print(f"Resuming training from epoch {start_epoch}", flush=True)
     shared_loaded = False
@@ -469,7 +495,7 @@ def _log_epoch(log, ckpt, trainer, epoch, info, eval_info, lrs_net,
     model_state = trainer.model.state_dict()
     opt_state = trainer.optimizer.state_dict()
     ckpt.save_trained_checkpoint(model_state, opt_state, epoch,
-                                 tau=trainer.tau)
+                                 tau=trainer.tau, rng=trainer.rng_state())
     ckpt.save_best_checkpoint(model_state, opt_state, epoch,
                               eval_info["top1_accuracy"])
     _plot_lrs(lrs_net, os.path.join(args.log_dir, "lr_net.png"))
@@ -516,9 +542,10 @@ def run_pipnet(args, loaders=None):
 
     ckpt = CheckpointManager(args)
     trainer = Trainer(args, num_classes, classes=classes)
-    start_epoch, resumed = restore_initial_state(trainer, ckpt, args)
-
     trainer.probe_wshape(trainloader)
+    # after the probe's draws, so that a resumed run's streams are the
+    # saved ones
+    start_epoch, resumed = restore_initial_state(trainer, ckpt, args)
     if is_main:
         log.create_log("log_epoch_overview", "epoch", *LOG_COLUMNS,
                        append=resumed)
@@ -568,10 +595,14 @@ def run_pipnet(args, loaders=None):
     epochs_to_finetune = args.epochs_finetune
     freeze_epochs = args.freeze_epochs + epochs_to_finetune  # main.py:326
     profile_dir = getattr(args, "profile_dir", "")
+    # --max_epochs_per_process: stop after this many epochs (pretraining
+    # counts against the first process) with checkpoints/CHUNK_CONTINUE
+    # beside the resumable net_trained_last; scripts/train_chunked.py
+    # resumes until the finished run removes the marker.
     chunk_budget = int(getattr(args, "max_epochs_per_process", 0) or 0)
+    chunk_marker = os.path.join(args.log_dir, "checkpoints",
+                                "CHUNK_CONTINUE")
     epochs_this_process = args.epochs_pretrain
-    eval_generator = torch.Generator(trainer.device).manual_seed(
-        args.seed + 7)
     lrs_net, lrs_class = [], []
     for epoch in range(start_epoch, args.epochs + 1):
         masks, finetune = trainer.main_masks(epoch, epochs_to_finetune,
@@ -607,24 +638,31 @@ def run_pipnet(args, loaders=None):
             trainer.model, testloader, epoch, num_classes=num_classes,
             enforce_weight_sparsity=getattr(args, "enforce_weight_sparsity",
                                             True),
-            generator=eval_generator, tau=trainer.tau, dtype=trainer.dtype)
+            generator=trainer.eval_generator, tau=trainer.tau,
+            dtype=trainer.dtype)
         if is_main:
             _log_epoch(log, ckpt, trainer, epoch, info, eval_info, lrs_net,
                        lrs_class, args)
         epochs_this_process += 1
         if (chunk_budget and epochs_this_process >= chunk_budget
                 and epoch < args.epochs):
+            if is_main:
+                with open(chunk_marker, "w") as f:
+                    f.write(str(epoch))
             print(f"\nChunk budget of {chunk_budget} epochs reached at "
                   f"epoch {epoch}/{args.epochs}; resume with "
                   "--resume_training to continue.", flush=True)
             return trainer
 
+    if is_main and os.path.exists(chunk_marker):
+        os.remove(chunk_marker)
     if args.epochs > 1 and is_main:
         # keep the final epoch number, so --resume_training on a finished
         # run extends it instead of restarting
         ckpt.save_trained_checkpoint(trainer.model.state_dict(),
                                      trainer.optimizer.state_dict(),
-                                     args.epochs, tau=trainer.tau)
+                                     args.epochs, tau=trainer.tau,
+                                     rng=trainer.rng_state())
     print("\nLoading best model for prototype visualization...", flush=True)
     best = _load_best(ckpt, trainer)
     if best is not None:

@@ -189,16 +189,21 @@ class CheckpointManager:
             state, meta)
 
     def save_trained_checkpoint(self, model_state, opt_state, epoch,
-                                tau=None):
+                                tau=None, rng=None):
         """Rolling net_trained + net_trained_last, with the epoch and the
         Gumbel temperature in the sidecar so a resumed run continues at
-        the annealed ``tau``."""
+        the annealed ``tau``, and ``rng`` (the states of the run's random
+        streams, under ``"rng"``) so that it draws what the uninterrupted
+        run would."""
         meta = {"epoch": epoch if isinstance(epoch, int) else str(epoch),
                 "config_hash": self.hash}
         if tau is not None:
             meta["tau"] = float(tau)
+        state = self._state(model_state, opt_state)
+        if rng is not None:
+            state["rng"] = rng
         first = os.path.join(self.log_ckpt_dir, "net_trained")
-        _save_file(first, self._state(model_state, opt_state), meta)
+        _save_file(first, state, meta)
         second = os.path.join(self.log_ckpt_dir, "net_trained_last")
         shutil.copyfile(first, second + ".tmp")
         os.replace(second + ".tmp", second)

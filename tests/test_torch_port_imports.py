@@ -29,6 +29,10 @@ assert not bad, bad
 # the data-parallel modules, the native assembler and the dry run too
 for mod in ("parallel.distributed", "parallel.mesh", "native", "dryrun"):
     assert pkg.__name__ + "." + mod in names, mod
+# the repo tools' counterparts and the acceptance runner
+for mod in ("receptive_field_analysis", "visualize_augmented_samples",
+            "validate_pretrained", "train_chunked", "acceptance_run"):
+    assert pkg.__name__ + ".scripts." + mod in names, mod
 """
 
 

@@ -243,3 +243,23 @@ def test_dryrun_multichip_prints_ok(dryrun):
     out, err = dryrun.communicate(timeout=300)
     assert dryrun.returncode == 0, out[-2000:] + err[-3000:]
     assert "dryrun_multichip(2): OK, loss=" in out
+
+
+def test_world_has_the_explicit_timeout(tmp_path):
+    """A world is built with distributed.PG_TIMEOUT (an hour: rank 0's
+    visualisations keep the other ranks waiting in a collective), not
+    the backend's default; a one-rank gloo world here."""
+    import datetime
+    import torch.distributed as dist
+    from count_pipnet_tpu_torch.parallel import distributed
+    assert distributed.PG_TIMEOUT == datetime.timedelta(hours=1)
+    assert distributed.maybe_initialize(
+        init_method=f"file://{tmp_path}/store", world_size=1, rank=0,
+        device_type="cpu")
+    try:
+        group = dist.distributed_c10d._get_default_group()
+        backend = group._get_backend(torch.device("cpu"))
+        assert backend.options._timeout == distributed.PG_TIMEOUT
+    finally:
+        distributed.shutdown()
+    assert not distributed.is_initialized()
