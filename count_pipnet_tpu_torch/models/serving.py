@@ -41,7 +41,7 @@ from .quantized import (fused_block_convnext_apply, fused_convnext_apply,
                         quant_convnext_apply, quantize_convnext_params)
 
 __all__ = ["make_serving_fn", "make_gumbel_serving_fn", "with_seed_counter",
-           "shard_serving_fn"]
+           "shard_serving_fn", "serving_plain_versions"]
 
 
 def _place(model, state_dict, device):
@@ -240,3 +240,37 @@ def with_seed_counter(infer, first_seed: int = 1):
         return infer(x, next(seeds))
 
     return fn
+
+
+@contextlib.contextmanager
+def serving_plain_versions(only=None):
+    """Every kernel wrapper of the serving forwards (or those named in
+    ``only``) swapped for its plain version, where models/quantized.py and
+    this module look them up: a forward built before the block runs the
+    plain versions inside it, on any device."""
+    import sys
+
+    from ..ops.fused_block import fused_block_plain
+    from ..ops.fused_head import fused_count_head_plain
+    from ..ops.fused_mlp import fused_ln_mlp_residual_plain
+    from ..ops.gumbel_head import (fused_block_gumbel_counts_plain,
+                                   gumbel_hard_counts_plain)
+    from ..ops.int8_gemm import int8_quant_gemm_plain
+    from . import quantized as mq
+    ms = sys.modules[__name__]
+    swaps = [(mq, "fused_block", fused_block_plain),
+             (mq, "fused_block_gumbel_counts",
+              fused_block_gumbel_counts_plain),
+             (mq, "fused_ln_mlp_residual", fused_ln_mlp_residual_plain),
+             (mq, "int8_quant_gemm", int8_quant_gemm_plain),
+             (ms, "fused_count_head", fused_count_head_plain),
+             (ms, "gumbel_hard_counts", gumbel_hard_counts_plain)]
+    swaps = [sw for sw in swaps if only is None or sw[1] in only]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)

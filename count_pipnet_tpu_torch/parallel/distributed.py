@@ -50,10 +50,11 @@ def maybe_initialize(init_method=None, world_size=None, rank=None,
 
     ``init_method``: a ``file://`` or ``tcp://`` store (``env://`` when
     ``MASTER_ADDR`` and ``MASTER_PORT`` are set); ``device_type``: "cuda"
-    or "cpu" (default: "cuda" where CUDA is available). An explicit
-    ``world_size`` of 1 with an ``init_method`` joins a one-rank world,
-    which runs every collective; from the environment a world size of 1
-    is a one-process run. Returns True when this process is a rank of a
+    or "cpu" (default: "cuda"; without a CUDA device a world joined
+    with no ``device_type`` raises, never falling back to the CPU). An
+    explicit ``world_size`` of 1 with an ``init_method`` joins a one-rank
+    world, which runs every collective; from the environment a world size
+    of 1 is a one-process run. Returns True when this process is a rank of a
     world, False for a one-process run."""
     if is_initialized():
         return True
@@ -76,7 +77,10 @@ def maybe_initialize(init_method=None, world_size=None, rank=None,
                              "or set MASTER_ADDR and MASTER_PORT")
         init_method = "env://"
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device for this rank; pass "
+                               "device_type='cpu' to join on the CPU")
+        device_type = "cuda"
     if device_type == "cuda":
         torch.cuda.set_device(local_rank)
         dev = torch.device("cuda", local_rank)

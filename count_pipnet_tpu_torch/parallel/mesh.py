@@ -121,10 +121,11 @@ def check_mesh_size(n_devices: int, available: int):
 def make_mesh(n_devices: int = -1, device=None) -> Mesh:
     """The world's mesh. In a world of R ranks: each rank's device
     (gathered once), ``n_devices`` -1 or R. In one process: the one
-    ``device`` (default: the current CUDA device, else the CPU),
-    ``n_devices`` -1 or 1 (a larger mesh runs as that many processes:
-    ``python -m count_pipnet_tpu_torch.main --mesh_shape N`` spawns them,
-    torchrun starts them). A mesh larger than the CUDA devices, or than
+    ``device`` (default: the current CUDA device; without one it raises:
+    the CPU is used only when asked for), ``n_devices`` -1 or 1 (a larger
+    mesh runs as that many processes: ``python -m
+    count_pipnet_tpu_torch.main --mesh_shape N`` spawns them, torchrun
+    starts them). A mesh larger than the CUDA devices, or than
     the world, raises the JAX package's ``ValueError``."""
     if _dist.is_initialized():
         size = _dist.process_count()
@@ -138,8 +139,10 @@ def make_mesh(n_devices: int = -1, device=None) -> Mesh:
         dist.all_gather_object(devices, str(_dist.device()))
         return Mesh(devices, _dist.process_index(), distributed=True)
     if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if torch.cuda.is_available() else torch.device("cpu"))
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device for the mesh; pass "
+                               "device='cpu' to make it on the CPU")
+        device = torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
     available = torch.cuda.device_count() if device.type == "cuda" else 1
     check_mesh_size(n_devices, available)

@@ -2,6 +2,7 @@
 count_pipnet_tpu_torch.scripts.<name>``)."""
 
 import contextlib
+import subprocess
 
 import torch
 
@@ -28,3 +29,14 @@ def no_tf32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def card_line():
+    """``name, power.limit`` of the card as nvidia-smi prints them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"(nvidia-smi unavailable: {e})"

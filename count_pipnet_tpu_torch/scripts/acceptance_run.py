@@ -1,41 +1,56 @@
-"""The canonical shapes experiment trained through the port, seed by seed.
+"""Acceptance runs: a config trained through the port, seed by seed, and
+optionally its checkpoint served on every gumbel route.
 
 For each seed N it runs the port's CLI in this process, as
 
-    python -m count_pipnet_tpu_torch.main \
-        --config configs/sweep_r2/onehot_seedN.yaml \
-        --log_dir <out>/accept_onehot_seedN --viz_prototype_maps False
+    python -m count_pipnet_tpu_torch.main --config <config> \
+        --log_dir <out>/accept_<name>_seedN --viz_prototype_maps False
 
-does (the configs as written: 9-class noisy shapes at 192², a 3-stage
-ConvNeXt, 16 prototypes, onehot, ``--fused_blocks --device_augment``,
-10 + 100 epochs; the prototype maps need matplotlib, which the card's
-machine lacks), with the launch counts of the port's kernels set to 0
-before the run and read after it. Then it prints one line a seed (the
-run's wall time, the kernels it launched, best and last top-1, the local
-size and the nonzero prototypes at the best epoch, the median epoch time
-of the main phase, the two visualisations' wall times, the step times
-below) and reads the runs with ``notebooks/evaluate_runs.py``.
+does (the prototype maps need matplotlib, which the card's machine lacks;
+the top-k grids render), with the launch counts of the port's kernels set
+to 0 before the run and read after it. The default config is the
+canonical shapes experiment, ``configs/sweep_r2/onehot_seed{N}.yaml`` (a
+``{}`` in ``--config`` takes the seed: 9-class noisy shapes at 192², a
+3-stage ConvNeXt, 16 prototypes, onehot, ``--fused_blocks
+--device_augment``, 10 + 100 epochs); any other config runs as written,
+with ``--seed N`` added only where N is not its own seed (e.g.
+``configs/flagship_200_wide.yaml``: 200 classes at 224², 7 stages, 256
+prototypes, a trunk that never unfreezes). Then it prints one line a seed
+(the run's wall time, the kernels it launched, best and last top-1, the
+local size and the nonzero prototypes at the best epoch, the median epoch
+time of the steady main phase, the two visualisations' wall times, the
+step times below) and reads the runs with ``notebooks/evaluate_runs.py``.
+A seed fails, rather than reports, when either visualisation printed
+``(... skipped: ...)`` or when K5 or K6 never launched.
 
 Step times (``steps``): the trainer's epoch and step are wrapped for the
 run. The host clock marks each ``train_step`` call and return (no
-synchronisation), so that in the steady main phase (the epochs after the
-trunk unfreezes) the median interval between two returns of one epoch is
-the steady step, split into the host time inside ``train_step`` and the
-time before it (the loader's next batch, the device augmentation's
-enqueue, the schedule); an epoch's start-up (from its start to its first
-step) and tail (from its last step to its end, which synchronises) are
-given apart. One steady epoch (``PROFILE_AFTER_FREEZE`` after the
-unfreeze) runs under ``torch.profiler`` with CUDA activity only: its wall
-time between two synchronisations, the kernels' summed device time, the
-idle share, and the five kernels that take the most device time.
+synchronisation), so that in the steady main phase the median interval
+between two returns of one epoch is the steady step, split into the host
+time inside ``train_step`` and the time before it (the loader's next
+batch, the device augmentation's enqueue, the schedule); an epoch's
+start-up (from its start to its first step) and tail (from its last step
+to its end, which synchronises) are given apart. The steady main phase is
+the epochs after the trunk unfreezes, or, in a schedule that never
+unfreezes it, the epochs after the first ``STEADY_AFTER``
+(:func:`schedule`). One steady epoch (``PROFILE_AFTER`` after the
+unfreeze, or main epoch ``PROFILE_FROZEN``) runs under ``torch.profiler``
+with CUDA activity only: its wall time between two synchronisations, the kernels'
+summed device time, the idle share, and the five kernels that take the
+most device time.
+
+``--serve`` then serves each run's ``net_best`` on the four gumbel routes
+over its whole test split (scripts/serve_trained.py), before
+``--drop_checkpoints`` removes the run's ``checkpoints/`` (about 50 MB a
+canonical run, many times that for the 7-stage flagship); a serving fault
+fails the seed.
 
     python3 -m count_pipnet_tpu_torch.scripts.acceptance_run \
-        [--seeds 1 2 3] [--out chiprun_out] [--drop_checkpoints] \
+        [--config configs/flagship_200_wide.yaml] \
+        [--seeds 1 2 3] [--out chiprun_out] [--serve] [--drop_checkpoints] \
         [-- <more CLI flags>]
 
 Flags after ``--`` go to the CLI, e.g. ``-- --dtype float32``.
-``--drop_checkpoints`` removes each run's ``checkpoints/`` once it is
-read (about 50 MB a run).
 """
 
 import argparse
@@ -50,23 +65,34 @@ import sys
 import time
 from pathlib import Path
 
+from . import card_line
+
 REPO = Path(__file__).resolve().parents[2]
 CONFIG = "configs/sweep_r2/onehot_seed{}.yaml"
 EPOCH_TIME = re.compile(r"Epoch time: ([0-9.]+)s \(([0-9.]+) steps/s\)")
 VIS_TIME = re.compile(r"^\s*(.*visualization) took ([0-9.]+)s")
+VIS_SKIPPED = re.compile(r"^\s*\((.*visualization) skipped: (.*)\)\s*$")
 # the profiled epoch: this many main epochs after the trunk unfreezes
-PROFILE_AFTER_FREEZE = 2
+PROFILE_AFTER = 2
+# a schedule that never unfreezes the trunk: the steady main phase starts
+# after this many main epochs, and this main epoch is profiled (the
+# canonical experiment's: 10 frozen epochs, then 2)
+STEADY_AFTER = 2
+PROFILE_FROZEN = 12
+# the launch counts of K5 and K6, each of which every training run of the
+# acceptance configs (--fused_blocks) must launch
+TRAINING_KERNELS = ("fused_ln_mlp_residual", "fused_mlp_bwd")
 
 
-def card_line():
-    """``name, power.limit`` of the card as nvidia-smi prints them."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip()
-    except (OSError, subprocess.SubprocessError) as e:
-        return f"(nvidia-smi unavailable: {e})"
+def schedule(freeze_epochs, epochs):
+    """(the main epochs before the steady phase, the profiled main epoch)
+    of a run whose trunk unfreezes after ``freeze_epochs`` of its
+    ``epochs`` main epochs; a trunk that never unfreezes (``freeze_epochs
+    >= epochs``) takes the steady phase after ``STEADY_AFTER`` epochs and
+    profiles main epoch ``PROFILE_FROZEN``."""
+    if freeze_epochs >= epochs:
+        return STEADY_AFTER, min(PROFILE_FROZEN, epochs)
+    return freeze_epochs, min(freeze_epochs + PROFILE_AFTER, epochs)
 
 
 def read_csv(run_dir):
@@ -82,9 +108,10 @@ def read_csv(run_dir):
 
 
 def read_log(run_dir):
-    """Epoch times of each phase and the visualisations' wall times, from
-    the run's ``out.txt``."""
-    pre, main, vis = [], [], {}
+    """Epoch times of each phase, the visualisations' wall times and the
+    visualisations that were skipped (with their errors), from the run's
+    ``out.txt``."""
+    pre, main, vis, skipped = [], [], {}, {}
     phase = pre
     with open(os.path.join(run_dir, "out.txt")) as f:
         for line in f:
@@ -98,15 +125,19 @@ def read_log(run_dir):
             m = VIS_TIME.match(line)
             if m:
                 vis[m.group(1)] = float(m.group(2))
-    return pre, main, vis
+            m = VIS_SKIPPED.match(line)
+            if m:
+                skipped[m.group(1)] = m.group(2)
+    return pre, main, vis, skipped
 
 
-def summarize(run_dir, freeze_epochs):
+def summarize(run_dir, steady_after):
+    """The run's figures from its CSV and ``out.txt``; the epoch times of
+    the steady main phase are those after ``steady_after`` main epochs."""
     rows = read_csv(run_dir)
     best = max(rows, key=lambda r: r["test_top1_acc"])
-    pre, main, vis = read_log(run_dir)
-    # the steady state: the main phase once the frozen stage has joined
-    steady = main[freeze_epochs:] or main
+    pre, main, vis, skipped = read_log(run_dir)
+    steady = main[steady_after:] or main
     return {
         "best_top1": best["test_top1_acc"], "best_epoch": int(best["epoch"]),
         "last_top1": rows[-1]["test_top1_acc"],
@@ -118,17 +149,17 @@ def summarize(run_dir, freeze_epochs):
         "epoch_s_first": main[0][0] if main else None,
         "pretrain_epoch_s_median": (statistics.median(t for t, _ in pre)
                                     if pre else None),
-        "visualization_s": vis,
+        "visualization_s": vis, "visualization_skipped": skipped,
     }
 
 
-def step_times(epochs, freeze_epochs, skip=()):
-    """Medians in ms over the steady main epochs (after ``freeze_epochs``,
+def step_times(epochs, steady_after, skip=()):
+    """Medians in ms over the steady main epochs (after ``steady_after``,
     none of ``skip``) of ``epochs``: {(phase, epoch): (begin, [(call,
     return), ...], end)} on the host clock, in seconds."""
     interval, inside, before, start, tail = [], [], [], [], []
     for (phase, epoch), (begin, marks, end) in epochs.items():
-        if phase != "main" or epoch <= freeze_epochs or epoch in skip \
+        if phase != "main" or epoch <= steady_after or epoch in skip \
                 or not marks:
             continue
         start.append(marks[0][0] - begin)
@@ -225,23 +256,55 @@ class Instrument:
         self.mod.Trainer.train_epoch, self.mod.train_step = self.saved
 
 
+def run_faults(res):
+    """Why a finished seed fails rather than reports: a visualisation that
+    was skipped, or K5 or K6 never launched."""
+    faults = [f"{what} skipped: {err}"
+              for what, err in res["visualization_skipped"].items()]
+    faults += [f"{k} launched 0 times" for k in TRAINING_KERNELS
+               if not res["launches"].get(k)]
+    return faults
+
+
+def run_argv(config, seed, run_dir, rest, get_args):
+    """The CLI's flags of one seed: ``config`` (its ``{}`` takes the seed,
+    else ``--seed`` is added where the config's own seed differs),
+    ``--log_dir``, ``--viz_prototype_maps False`` and ``rest``."""
+    path = Path(config.format(seed))
+    argv = ["--config", str(path if path.is_absolute() else REPO / path),
+            "--log_dir", run_dir, "--viz_prototype_maps", "False", *rest]
+    if "{}" not in config and get_args(argv).seed != seed:
+        argv += ["--seed", str(seed)]
+    return argv
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", default=CONFIG,
+                    help="the config, relative to the repository; a {} in "
+                    "it takes the seed (default: %(default)s)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3])
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--serve", action="store_true",
+                    help="serve each run's net_best on the four gumbel "
+                    "routes (scripts/serve_trained.py)")
     ap.add_argument("--drop_checkpoints", action="store_true")
     ap.add_argument("rest", nargs=argparse.REMAINDER,
                     help="-- followed by more CLI flags")
     opts = ap.parse_args(argv)
     rest = opts.rest[1:] if opts.rest[:1] == ["--"] else opts.rest
+    # runs go to <out>/<run_name>_seed<N>
+    run_name = ("accept_onehot" if opts.config == CONFIG
+                else "accept_" + Path(opts.config).stem)
 
     import torch
     from torch.distributed import constants
 
     from .. import main as cli
     from ..ops import cuda as kernels
+    from .serve_trained import serve_trained
 
     os.makedirs(opts.out, exist_ok=True)
     print(f"card: {card_line()}", flush=True)
@@ -252,47 +315,60 @@ def main(argv=None):
           flush=True)
     run_dirs, results = [], []
     for seed in opts.seeds:
-        run_dir = os.path.join(opts.out, f"accept_onehot_seed{seed}")
-        argv_run = ["--config", str(REPO / CONFIG.format(seed)),
-                    "--log_dir", run_dir, "--viz_prototype_maps", "False",
-                    *rest]
+        run_dir = os.path.join(opts.out, f"{run_name}_seed{seed}")
+        argv_run = run_argv(opts.config, seed, run_dir, rest, cli.get_args)
         args = cli.get_args(argv_run)
-        freeze = args.freeze_epochs + args.epochs_finetune
+        steady_after, profile_epoch = schedule(
+            args.freeze_epochs + args.epochs_finetune, args.epochs)
         print(f"[accept] seed {seed}: main {' '.join(argv_run)}",
               flush=True)
-        inst = Instrument(min(freeze + PROFILE_AFTER_FREEZE, args.epochs))
+        inst = Instrument(profile_epoch)
         kernels.reset_launch_counts()
         t0 = time.time()
         try:
-            rc = cli.main(argv_run)
+            try:
+                rc = cli.main(argv_run)
+            finally:
+                inst.close()
+            wall = time.time() - t0
+            launches = {k: v for k, v in kernels.launch_counts.items() if v}
+            if rc:
+                print(f"[accept] seed {seed} failed rc={rc}", flush=True)
+                return rc
+            res = {"seed": seed, "run_dir": run_dir,
+                   "wall_s": round(wall, 1), "launches": launches,
+                   **summarize(run_dir, steady_after),
+                   "steps": step_times(inst.epochs, steady_after,
+                                       skip=(inst.profile_epoch,)),
+                   "profiled_epoch": inst.profile}
+            print("[accept] " + json.dumps(res), flush=True)
+            faults = run_faults(res)
+            if faults:
+                print(f"[accept] seed {seed} failed: {'; '.join(faults)}",
+                      flush=True)
+                return 1
+            if opts.serve:
+                t0 = time.time()
+                serve_trained(run_dir, device="cpu" if args.disable_cuda
+                              else "cuda", batch_size=args.batch_size)
+                res["serve_s"] = round(time.time() - t0, 1)
         finally:
-            inst.close()
-        wall = time.time() - t0
-        launches = {k: v for k, v in kernels.launch_counts.items() if v}
-        if rc:
-            print(f"[accept] seed {seed} failed rc={rc}", flush=True)
-            return rc
-        res = {"seed": seed, "run_dir": run_dir, "wall_s": round(wall, 1),
-               "launches": launches, **summarize(run_dir, freeze),
-               "steps": step_times(inst.epochs, freeze,
-                                   skip=(inst.profile_epoch,)),
-               "profiled_epoch": inst.profile}
+            if opts.drop_checkpoints:
+                shutil.rmtree(os.path.join(run_dir, "checkpoints"),
+                              ignore_errors=True)
         results.append(res)
         run_dirs.append(run_dir)
-        print("[accept] " + json.dumps(res), flush=True)
-        if opts.drop_checkpoints:
-            shutil.rmtree(os.path.join(run_dir, "checkpoints"),
-                          ignore_errors=True)
     best = [r["best_top1"] for r in results]
     print("[accept] " + json.dumps({
         "seeds": opts.seeds, "best_top1_mean": statistics.mean(best),
         "best_top1_std": statistics.pstdev(best),
+        "serve_s": [r.get("serve_s") for r in results],
         "card": card_line()}), flush=True)
     evaluator = REPO / "notebooks" / "evaluate_runs.py"
     if evaluator.exists():
         subprocess.run([sys.executable, str(evaluator), "--run_dirs",
                         *run_dirs, "--out_dir",
-                        os.path.join(opts.out, "accept_onehot_eval")],
+                        os.path.join(opts.out, f"{run_name}_eval")],
                        check=True)
     return 0
 

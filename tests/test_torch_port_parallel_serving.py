@@ -263,3 +263,36 @@ def test_world_has_the_explicit_timeout(tmp_path):
     finally:
         distributed.shutdown()
     assert not distributed.is_initialized()
+
+
+def test_make_mesh_without_a_device_raises_without_cuda(monkeypatch):
+    """With no device and no CUDA device the mesh raises rather than fall
+    back to the CPU; an explicit "cpu" still makes the one-device mesh."""
+    from count_pipnet_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    mesh = make_mesh(-1, "cpu")
+    assert mesh.devices == [torch.device("cpu")]
+
+
+def test_maybe_initialize_without_a_device_raises_without_cuda(
+        tmp_path, monkeypatch):
+    """A world joined with no device_type and no CUDA device raises before
+    any process group exists; device_type="cpu" still joins (gloo)."""
+    import torch.distributed as dist
+    from count_pipnet_tpu_torch.parallel import distributed
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.maybe_initialize(init_method=f"file://{tmp_path}/a",
+                                     world_size=1, rank=0)
+    assert not distributed.is_initialized()
+    assert distributed.maybe_initialize(init_method=f"file://{tmp_path}/b",
+                                        world_size=1, rank=0,
+                                        device_type="cpu")
+    try:
+        assert dist.get_backend() == "gloo"
+        assert distributed.device() == torch.device("cpu")
+    finally:
+        distributed.shutdown()
+    assert not distributed.is_initialized()

@@ -12,6 +12,9 @@ a six-step trajectory of the train step, and evaluation.
   ``--fused_whole_blocks`` and the ``--fused_dwconv`` routes.
   Losses and final parameters within the stated tolerances; frozen
   parameters bit-unchanged.
+* One step's gradients under the flagship's phases (pretraining, the
+  frozen-trunk main masks), in f32 equal to the JAX package's, in bf16
+  no farther from f32 than the JAX package's bf16 gradients.
 * ``train.eval.evaluate`` against the JAX ``evaluate`` on the same
   parameters, batches and noise, including the destructive weight shrink.
 Small widths; inputs from numpy seeds."""
@@ -28,6 +31,7 @@ from count_pipnet_tpu.models.convnext import ConvNeXtFeatures as JFeatures
 from count_pipnet_tpu.models.pipnet import CountPIPNet as JCountPIPNet
 from count_pipnet_tpu.models.virtual_weights import \
     calculate_virtual_weights as j_virtual_weights
+from count_pipnet_tpu.ops.losses import calculate_loss as j_calculate_loss
 from count_pipnet_tpu.train import eval as jeval
 from count_pipnet_tpu.train.optim import adamw_init
 from count_pipnet_tpu.train.optim import label_params as j_label_params
@@ -85,15 +89,17 @@ def test_label_groups_match_label_params(use_mid_layers, num_stages):
 
 
 def _models(fused, activation="gumbel_softmax", intermediate="onehot",
-            **routes):
+            dtype=jnp.float32, **routes):
     """The flax and the port's model on the same parameters; ``fused``
-    sets ``fused_mlp``, ``routes`` the other block-route flags."""
+    sets ``fused_mlp``, ``routes`` the other block-route flags, ``dtype``
+    the flax model's compute dtype (the port's comes from the step)."""
     jm = JCountPIPNet(
         num_classes=NC, num_prototypes=P, max_count=M,
         backbone=JFeatures(stage_settings=STAGES, stride_threshold=40,
-                           num_stages=NUM_STAGES, fused_mlp=fused, **routes),
+                           num_stages=NUM_STAGES, fused_mlp=fused,
+                           dtype=dtype, **routes),
         num_features=P, activation=activation,
-        intermediate_type=intermediate)
+        intermediate_type=intermediate, dtype=dtype)
     params = jax.device_get(jm.init(
         {"params": jax.random.PRNGKey(5), "gumbel": jax.random.PRNGKey(1)},
         jnp.zeros((1, 64, 64, 3)))["params"])
@@ -246,6 +252,87 @@ def _check_trajectory(monkeypatch, fused, jm, params, tm,
         else:
             assert np.abs(diff).max() <= 0.01 * np.abs(moved).max(), names
     return init
+
+
+# the flagship's phases (configs/flagship_200_wide.yaml): pretraining, and
+# the main epochs with the trunk frozen (no sparsity projection)
+FROZEN_PHASES = {"pretrain": PHASES[0],
+                 "frozen main": ("frozen main",
+                                 {"to_train", "to_freeze", "add_on",
+                                  "intermediate", "cls_weight", "cls_bias"},
+                                 5.0, 2.0, 2.0, 0.0, 0.0)}
+
+
+def _gradients(monkeypatch, dtype, phase):
+    """The loss gradient of one --fused_blocks step on both sides in
+    ``dtype`` (the flax model's dtype; the port's ``train_step`` autocast
+    with zero learning rates, so the step leaves the gradients and not
+    the parameters): {flax path: (JAX gradient, port gradient)} of the
+    phase's trainable tensors."""
+    jm, params, tm = _models(True, dtype=getattr(jnp, dtype))
+    noise, masks = _noise_and_masks(tm, 21)
+    _patch(monkeypatch, noise, masks)
+    sched, masks_on = _sched(FROZEN_PHASES[phase])
+    sched["lr"] = {k: 0.0 for k in LR}
+    rng = np.random.default_rng(4)
+    x1, x2 = (rng.normal(size=(B, 64, 64, 3)).astype(np.float32)
+              for _ in range(2))
+    ys = rng.integers(0, NC, size=B)
+
+    def loss_fn(p):
+        proto, pooled, out = jm.apply(
+            {"params": p}, jnp.concatenate([x1, x2]), train=True,
+            tau=sched["tau"], rngs={"gumbel": jax.random.PRNGKey(0),
+                                    "droppath": jax.random.PRNGKey(1)})
+        return j_calculate_loss(
+            proto.astype(jnp.float32), pooled.astype(jnp.float32),
+            out.astype(jnp.float32), jnp.asarray(ys, jnp.int32),
+            sched["align_w"], sched["tanh_w"], sched["class_w"],
+            p["classification"]["multiplier"][0], sched["pretrain"],
+            sched["finetune"], is_count_pipnet=True,
+            enforce_weight_sparsity=False, tanh_loss_coeff=COEFF)[0]
+
+    g_j = jax.device_get(jax.jit(jax.grad(loss_fn))(params))
+    labels = label_params(tm, "convnext_tiny_26", use_mid_layers=True,
+                          num_stages=NUM_STAGES)
+    set_trainable(tm, labels, masks_on)
+    train_step(tm, make_optimizer(tm, labels),
+               (torch.from_numpy(x1), torch.from_numpy(x2),
+                torch.from_numpy(ys)), sched, enforce_weight_sparsity=False,
+               tanh_loss_coeff=COEFF, noise=torch.from_numpy(noise),
+               drop_masks=[torch.from_numpy(m.astype(np.float32))
+                           for m in masks], dtype=dtype)
+    g_t = to_jax_params({n: p.grad for n, p in tm.named_parameters()
+                         if p.grad is not None})
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(g_t)[0]:
+        names = tuple(k.key for k in path)
+        out[names] = (np.asarray(_lookup(g_j, names), np.float32),
+                      np.asarray(leaf, np.float32))
+    return out
+
+
+@pytest.mark.parametrize("phase", list(FROZEN_PHASES))
+def test_bf16_gradients_stay_as_close_to_f32_as_jax(monkeypatch, phase):
+    """The flagship's phases on the --fused_blocks route, one step's
+    gradients of every trainable tensor. In f32 the port's equal the JAX
+    package's to 5e-3 of each tensor's norm. In bf16 (the port's autocast
+    against flax's ``dtype=bfloat16``) each side's gradient is held to
+    its own f32 gradient: the port's relative errors, their largest and
+    their mean over the tensors, are within 1.5 times the JAX package's,
+    so the port's bf16 training is about as noisy as the reference's."""
+    f32 = _gradients(monkeypatch, "float32", phase)
+    bf16 = _gradients(monkeypatch, "bfloat16", phase)
+    assert len(f32) >= 20 and f32.keys() == bf16.keys()
+    err_j, err_t = [], []
+    for names, (g_j, g_t) in f32.items():
+        norm = np.linalg.norm(g_j)
+        assert np.linalg.norm(g_t - g_j) <= 5e-3 * norm, names
+        err_j.append(np.linalg.norm(bf16[names][0] - g_j) / norm)
+        err_t.append(np.linalg.norm(bf16[names][1] - g_t) / norm)
+    assert max(err_t) <= 1.5 * max(err_j), (max(err_t), max(err_j))
+    assert np.mean(err_t) <= 1.5 * np.mean(err_j), (np.mean(err_t),
+                                                    np.mean(err_j))
 
 
 def test_evaluate_matches_jax(monkeypatch):
