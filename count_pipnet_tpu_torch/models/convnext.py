@@ -12,6 +12,10 @@ loads without torchvision. Images come in as [B, H, W, 3] and features go
 out as [B, H, W, C]; inside, the convs run on ``channels_last`` tensors
 (an NHWC tensor viewed as NCHW is exactly that layout).
 
+Under ``torch.autocast`` the residual stream is in the autocast dtype
+from the stem on, on every block route, as the JAX trunk's stream is in
+its ``dtype``.
+
 Initialisation is the JAX package's: every conv and dense kernel from a
 normal of std 0.02 truncated at two standard deviations, zero biases,
 LayerNorms at one and zero, layer scales at 1e-6.
@@ -49,7 +53,8 @@ from ..ops.fused_block import fused_block_ad
 from ..ops.fused_mlp import fused_ln_mlp_residual_ad
 
 __all__ = ["CONVNEXT_TINY_STAGES", "LayerNorm2d", "Stem", "CNBlock",
-           "Downsample", "ConvNeXtFeatures", "convnext_tiny_26_features",
+           "Downsample", "ConvNeXtFeatures", "draw_drop_mask",
+           "convnext_tiny_26_features",
            "convnext_tiny_13_features", "get_feature_dimensions",
            "stage_layout", "init_trunc_normal"]
 
@@ -58,13 +63,26 @@ CONVNEXT_TINY_STAGES = ((96, 3), (192, 3), (384, 9), (768, 3))
 
 
 class LayerNorm2d(nn.LayerNorm):
-    """LayerNorm over the channels of an NCHW tensor (torchvision's)."""
+    """LayerNorm over the channels of an NCHW tensor (torchvision's).
+    Under autocast the output takes the autocast dtype (the statistics
+    stay f32), as flax's ``LayerNorm(dtype=...)`` returns its compute
+    dtype: the stem then hands the blocks a bf16 stream, as in the JAX
+    package."""
 
     def forward(self, x):
         x = x.permute(0, 2, 3, 1)
         x = F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
                          self.eps)
-        return x.permute(0, 3, 1, 2)
+        return x.to(_compute_dtype(x)).permute(0, 3, 1, 2)
+
+
+def _compute_dtype(x):
+    """The autocast dtype when autocast is on for ``x``'s device, else
+    ``x``'s dtype."""
+    dev = x.device.type
+    if torch.is_autocast_enabled(dev):
+        return torch.get_autocast_dtype(dev)
+    return x.dtype
 
 
 class Permute(nn.Module):
@@ -144,7 +162,9 @@ class CNBlock(nn.Module):
             h = self.block[1:](self._dwconv(x, xr).permute(0, 3, 1, 2))
         else:
             h = self.block(x)
-        h = self.layer_scale * h
+        # the layer scale and the residual in the branch's dtype, as flax
+        # casts gamma to it: under autocast the stream stays bf16
+        h = self.layer_scale.to(h.dtype) * h
         if drop_mask is not None:
             h = h * drop_mask.to(h.dtype) / keep
         return x + h
@@ -156,10 +176,7 @@ class CNBlock(nn.Module):
         dw = self.block[0]
         if not self.fused_dwconv:
             return dw(x).permute(0, 2, 3, 1)
-        dev = x.device.type
-        dtype = (torch.get_autocast_dtype(dev)
-                 if torch.is_autocast_enabled(dev) else x.dtype)
-        return dwconv7_pfwd_ad(xr, dw.weight, dw.bias, dtype)
+        return dwconv7_pfwd_ad(xr, dw.weight, dw.bias, _compute_dtype(x))
 
 
 class Downsample(nn.Sequential):
@@ -190,6 +207,19 @@ def stage_layout(stage_settings, num_stages, stride_threshold):
         out.append(("blocks", feat_idx, dim, n_blocks))
         feat_idx += 1
     return out
+
+
+def draw_drop_mask(batch, sd_prob, device, generator=None, shard=None):
+    """A block's stochastic-depth mask [batch, 1, 1, 1] in f32: 1 with
+    probability ``1 - sd_prob``, drawn from ``generator``; with ``shard``
+    (a rank's rows of a world batch) drawn at the world's size, this
+    rank's rows kept."""
+    shape = (batch, 1, 1, 1)
+    if shard is not None:
+        shape = shard.world_shape(shape)
+    keep = torch.full(shape, 1.0 - sd_prob, device=device)
+    mask = torch.bernoulli(keep, generator=generator)
+    return mask if shard is None else shard.take(mask)
 
 
 class ConvNeXtFeatures(nn.Module):
@@ -264,14 +294,8 @@ class ConvNeXtFeatures(nn.Module):
                     if drop_masks is not None:
                         mask = drop_masks[block_id]
                     else:
-                        shape = (h.shape[0], 1, 1, 1)
-                        if shard is not None:
-                            shape = shard.world_shape(shape)
-                        keep = torch.full(shape, 1.0 - blk.sd_prob,
-                                          device=h.device)
-                        mask = torch.bernoulli(keep, generator=generator)
-                        if shard is not None:
-                            mask = shard.take(mask)
+                        mask = draw_drop_mask(h.shape[0], blk.sd_prob,
+                                              h.device, generator, shard)
                 h = blk(h, mask)
                 block_id += 1
         return h.permute(0, 2, 3, 1)
